@@ -1,0 +1,172 @@
+"""3D STL-sphere Euler workload on the channel-split block march
+(counterpart of `ibx/cases/sphere3d.py` on its cs branch).
+
+Octree mesh around a triangulated sphere, ghost-cell immersed boundary,
+6-sided farfield; the state stays ``[B, C, bs, bs*bs]`` across the march,
+whose three kernels run on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..convert import tables_from_numpy
+from ..geometry.inside import points_inside
+from ..geometry.octree import build_mesh
+from ..geometry.refine import refine_to_length
+from ..geometry.stereolitography import Stereolitography, merge_points
+from ..ops.block_ops import to_blocks, to_flat
+from ..ops.rhs_cs import cs_merge, cs_split, rk2_step_cs
+from ..physics.bc import apply_flow_bc, flow_bc
+from ..physics.fluid import Fluid, make_fluid, physicality_guard
+from ..topology.blocked_bc import GhostBC, _collect_families
+from ..topology.blocks import BlockTables, build_block_tables
+from ..topology.domain import Domain
+
+FAMILIES = ("farfield", "wall")
+
+
+def icosphere(radius: float = 0.5, center=(0.0, 0.0, 0.0),
+              h: float = 0.35) -> Stereolitography:
+    """Icosahedron-subdivision sphere, reprojected to the exact radius."""
+    phi = (1 + np.sqrt(5)) / 2
+    verts = np.array([
+        [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+        [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+        [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+    ], dtype=np.float32)
+    verts /= np.linalg.norm(verts[0])
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], dtype=np.int64)
+    stl = Stereolitography(
+        verts * radius + np.asarray(center, np.float32), faces)
+    stl = refine_to_length(stl, h * radius)
+    c = np.asarray(center, np.float32)
+    r = stl.points - c
+    stl.points = c + r * (radius / np.linalg.norm(r, axis=1))[:, None]
+    return stl
+
+
+@dataclasses.dataclass
+class Sphere3dCase:
+    dom: Domain
+    fluid: Fluid
+    P_inf: np.ndarray
+    mach: float
+    cfl: float
+    high_order: bool
+    bt: BlockTables
+    bc: GhostBC
+    bc_fns: dict
+    active_cs: torch.Tensor   # f32[B, 1, bs, bs*bs] 0/1 freeze mask
+    P0: torch.Tensor          # f32[N, 5] flat initial state (ghosts set)
+    build_seconds: float      # host build + table upload
+
+    def apply_bcs_cs(self, Pc):
+        """Ghost BCs on the cs state, in place."""
+        return self.bc.apply_cs(Pc, self.bc_fns, guard=physicality_guard)
+
+    def step_cs(self, Pc):
+        """One RK2 step on the cs state: (Pc, resnorm)."""
+        return rk2_step_cs(self.bt, self.fluid, Pc, self.apply_bcs_cs,
+                           cfl=self.cfl, high_order=self.high_order,
+                           active_cs=self.active_cs)
+
+    def to_cs(self, P):
+        return cs_split(self.bt, to_blocks(self.bt, P))
+
+    def from_cs(self, Pc):
+        return to_flat(self.bt, cs_merge(self.bt, Pc))
+
+    def step(self, P):
+        """One RK2 step on the flat [N, 5] state: (P, resnorm)."""
+        Pc, res = self.step_cs(self.to_cs(P))
+        return self.from_cs(Pc), res
+
+    def march(self, P, n_steps: int):
+        """``n_steps`` RK2 steps from the flat state; the state stays
+        channel-split in between."""
+        Pc = self.to_cs(P)
+        for _ in range(n_steps):
+            Pc, _ = self.step_cs(Pc)
+        return self.from_cs(Pc)
+
+
+def build_sphere3d(
+    *,
+    wall_h: float = 0.05,
+    farfield: float = 4.0,
+    block_size: int = 8,
+    mach: float = 0.3,
+    cfl: float = 0.7,
+    surface_h: float = 0.2,
+    high_order: bool = True,
+    use_blocks: bool = True,
+    verbose: bool = False,
+    device="cuda",
+) -> Sphere3dCase:
+    """Build the sphere case on ``device`` (the card unless asked
+    otherwise); same parameters as the JAX package's `build_sphere3d`.
+    Only the block path exists in the port (``use_blocks=True``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_sphere3d: device is CUDA but no CUDA "
+                           "device is available (pass device='cpu')")
+    if not use_blocks:
+        raise ValueError("the port has only the block path (use_blocks)")
+    t0 = time.perf_counter()
+    stl = merge_points(icosphere(h=surface_h))
+    msh = build_mesh(
+        [-farfield] * 3, [2 * farfield] * 3,
+        ("wall", stl, wall_h),
+        block_size=block_size,
+    )
+    dom = Domain(
+        msh,
+        verbose=verbose,
+        hypercube_families=[(
+            "farfield",
+            [(0, False), (0, True), (1, False), (1, True),
+             (2, False), (2, True)],
+        )],
+    )
+    inside = points_inside(stl, dom.centers)
+
+    fluid = make_fluid()
+    T_inf, p_inf = 288.15, 101325.0
+    a = float(np.sqrt(1.4 * 283.0 * T_inf))
+    P_inf = np.array([p_inf, T_inf, mach * a, 0.0, 0.0], dtype=np.float32)
+    farfield_bc = flow_bc(fluid, P_inf, device=device)
+    wall_bc = flow_bc(fluid, [p_inf, T_inf, 0.0], normal_flow=True,
+                      device=device)
+    bc_fns = {
+        "farfield": lambda Pi, nrm: apply_flow_bc(farfield_bc, Pi, nrm),
+        "wall": lambda Pi, nrm: apply_flow_bc(wall_bc, Pi, nrm),
+    }
+
+    bt, bc = tables_from_numpy(build_block_tables(dom),
+                               _collect_families(dom, FAMILIES), FAMILIES,
+                               device)
+    active = torch.as_tensor((~inside).astype(np.float32), device=device)
+    active_cs = cs_split(bt, to_blocks(bt, active[:, None]))
+
+    P0 = np.tile(P_inf, (dom.ncells, 1))
+    P0[inside, 2:] = 0.0
+    case = Sphere3dCase(
+        dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, cfl=cfl,
+        high_order=high_order, bt=bt, bc=bc, bc_fns=bc_fns,
+        active_cs=active_cs, P0=None, build_seconds=0.0)
+    Pc0 = case.apply_bcs_cs(case.to_cs(torch.as_tensor(P0, device=device)))
+    case.P0 = case.from_cs(Pc0)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    case.build_seconds = time.perf_counter() - t0
+    return case

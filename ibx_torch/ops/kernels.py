@@ -1,0 +1,420 @@
+"""The three hand-written CUDA kernels of the channel-split march, their
+wrappers, launch counters and plain PyTorch versions.
+
+| kernel         | source                  | replaces (ibx/ops/pallas_rhs.py)  |
+| -------------- | ----------------------- | --------------------------------- |
+| `rk2_update`   | csrc/rk2_update.cu      | `_kernel_update` / `run_update`   |
+| `euler_pass_a` | csrc/euler_pass_a.cu    | `_kernel_a` / `run_kernel_a`      |
+| `euler_pass_b` | csrc/euler_pass_b.cu    | `_kernel_b` / `run_kernel_b`      |
+
+All grids are float32 ``[B, C, bs, bs*bs]`` (within-block cell index
+w = z*bs^2 + y*bs + x). The kernels are compiled for ``sm_90a`` with
+``nvcc`` at first use, one process per source in parallel, linked into
+one shared library under ``ibx_torch/_build/`` and called through
+``ctypes`` on the current CUDA stream.
+
+Each wrapper takes its plain version (``*_ref``, the same expressions
+written with tensor ops) only for tensors on the CPU; for CUDA tensors it
+launches the kernel, adds one to ``launches[name]`` and raises if the
+launch fails. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from ..physics.fluid import Fluid
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("rk2_update.cu", "euler_pass_a.cu", "euler_pass_b.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+launches: Dict[str, int] = {"rk2_update": 0, "euler_pass_a": 0,
+                            "euler_pass_b": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda)")
+    return cand
+
+
+def build(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; cached per process
+    and, on disk, by a hash of the sources and flags."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    files = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        digest.update(f.name.encode() + f.read_bytes())
+    tag = digest.hexdigest()[:16]
+    so = BUILD_DIR / f"libibx_kernels_{tag}.so"
+    if not so.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        objs = [BUILD_DIR / f"{Path(s).stem}_{tag}.o" for s in SOURCES]
+
+        def compile_one(src_obj):
+            src, obj = src_obj
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                   str(CSRC / src), "-o", str(obj)]
+            return cmd, subprocess.run(cmd, capture_output=True, text=True)
+
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+            results = list(ex.map(compile_one, zip(SOURCES, objs)))
+        for cmd, r in results:
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                                   f"{r.stdout}\n{r.stderr}")
+            if verbose:
+                print(r.stderr.strip(), flush=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
+                               f"{r.stdout}\n{r.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    lib.ibx_rk2_update.argtypes = [p, p, p, p, p, p, ll, i, f, f, f, f, p]
+    lib.ibx_euler_pass_a.argtypes = [p, p, p, p, p, i, i, i, f, p]
+    lib.ibx_euler_pass_b.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f, p]
+    for fn in (lib.ibx_rk2_update, lib.ibx_euler_pass_a,
+               lib.ibx_euler_pass_b):
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# argument checks
+# ---------------------------------------------------------------------------
+
+def _check(name: str, x: torch.Tensor, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _geometry(Pc: torch.Tensor):
+    if Pc.dim() != 4 or Pc.shape[1] != 5 or Pc.shape[3] != Pc.shape[2] ** 2:
+        raise ValueError(f"state must be [B, 5, bs, bs*bs], got "
+                         f"{tuple(Pc.shape)}")
+    B, _, bs, _ = Pc.shape
+    if bs < 2 or bs & (bs - 1):
+        raise ValueError(f"block size must be a power of two, got {bs}")
+    return B, bs
+
+
+def _check_tables(meta, nbr_table, B, device) -> None:
+    _check("meta", meta, (B, 16), device)
+    if nbr_table.device != device or nbr_table.dtype != torch.int32 \
+            or tuple(nbr_table.shape) != (B, 8) \
+            or not nbr_table.is_contiguous():
+        raise ValueError("nbr_table must be a contiguous int32 [B, 8] "
+                         f"tensor on {device}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# rk2_update
+# ---------------------------------------------------------------------------
+
+def rk2_update_ref(fluid: Fluid, Pc, R0, R1, dtb, active, cfl: float):
+    """Plain version of `rk2_update`: the expressions of `_kernel_update`
+    (p2s -> Q0 + dt*R -> guarded s2p) with the channel axis 1."""
+    p = Pc[:, 0:1]
+    T = Pc[:, 1:2].clamp(min=10.0)
+    u = Pc[:, 2:]
+    kin = (u ** 2).sum(dim=1, keepdim=True) / 2
+    rho = p / (fluid.R * T)
+    E = rho * (fluid.cv * T + kin)
+    Q0 = torch.cat([rho, E, rho * u], dim=1)
+
+    dt = cfl / dtb
+    if active is not None:
+        dt = dt * active
+    if R1 is not None:
+        Qn = Q0 + dt * (R0 + R1) / 2
+    else:
+        Qn = Q0 + dt * R0
+
+    rho = Qn[:, 0:1].clamp(min=1e-6)
+    E = Qn[:, 1:2]
+    u = Qn[:, 2:] / rho
+    kin = (u ** 2).sum(dim=1, keepdim=True) / 2
+    p = fluid.gm1 * (E - rho * kin)
+    T = (p / (rho * fluid.R)).clamp(10.0, 2e4)
+    vmag = torch.sqrt((u ** 2).sum(dim=1, keepdim=True) + 1e-12)
+    scale = (3000.0 / vmag).clamp(max=1.0)
+    return torch.cat([p.clamp(1.0, 1e9), T, u * scale], dim=1)
+
+
+def rk2_update(fluid: Fluid, Pc, R0, R1, dtb, active, cfl: float):
+    """Fused RK2 stage (stage 1 when ``R1`` is None): returns the guarded
+    primitive state ``[B, 5, bs, bs*bs]``. ``dtb`` is the per-cell
+    wave-speed bound, ``active`` an optional 0/1 freeze mask, both
+    ``[B, 1, bs, bs*bs]``. Geometry comes from the operand shapes."""
+    B, bs = _geometry(Pc)
+    dev = Pc.device
+    g5, g1 = (B, 5, bs, bs * bs), (B, 1, bs, bs * bs)
+    _check("P", Pc, g5, dev)
+    _check("R0", R0, g5, dev)
+    if R1 is not None:
+        _check("R1", R1, g5, dev)
+    _check("dtb", dtb, g1, dev)
+    if active is not None:
+        _check("active", active, g1, dev)
+    if dev.type == "cpu":
+        return rk2_update_ref(fluid, Pc, R0, R1, dtb, active, cfl)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty_like(Pc)
+    err = build().ibx_rk2_update(
+        _ptr(Pc), _ptr(R0), _ptr(R1), _ptr(dtb), _ptr(active), _ptr(out),
+        B * bs ** 3, bs ** 3, float(cfl), fluid.R, fluid.gm1, fluid.cv,
+        _stream(dev))
+    _raise_on(err, "rk2_update")
+    launches["rk2_update"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# shared plain-version helpers (5D view [B, C, z, y, x]; dim d on axis 4-d)
+# ---------------------------------------------------------------------------
+
+def _bview(v):
+    """Per-block [B] vector shaped to broadcast against [B, C, z, y, x]."""
+    return v.view((-1, 1, 1, 1, 1))
+
+
+def _neighbor(X5, meta, nbr_table, d: int, s: int):
+    """Side-s neighbor values along dim d of every cell: the shifted own
+    block inside, the neighbor block's opposite edge plane at the block
+    edge, the own edge plane on one-sided boundary sides."""
+    ax = 4 - d
+    bs = X5.shape[ax]
+    first = X5.narrow(ax, 0, 1)
+    last = X5.narrow(ax, bs - 1, 1)
+    bnd = _bview(meta[:, 9 + 2 * d + s])
+    nb = nbr_table[:, 2 * d + s].long()
+    if s == 0:
+        halo = torch.where(bnd > 0, first, last[nb])
+        return torch.cat([halo, X5.narrow(ax, 0, bs - 1)], dim=ax)
+    halo = torch.where(bnd > 0, last, first[nb])
+    return torch.cat([X5.narrow(ax, 1, bs - 1), halo], dim=ax)
+
+
+def _edge_mask(meta, d: int, s: int, bs: int):
+    """1 everywhere except edge_valid[d][s] on the side-s edge plane."""
+    B = meta.shape[0]
+    m = torch.ones((B, bs), dtype=meta.dtype, device=meta.device)
+    m[:, bs - 1 if s else 0] = meta[:, 3 + 2 * d + s]
+    shape = [B, 1, 1, 1, 1]
+    shape[4 - d] = bs
+    return m.view(shape)
+
+
+# ---------------------------------------------------------------------------
+# euler_pass_a
+# ---------------------------------------------------------------------------
+
+def euler_pass_a_ref(fluid: Fluid, Pc, meta, nbr_table, *, with_dt: bool):
+    """Plain version of `euler_pass_a`: the expressions of `_kernel_a`."""
+    B, bs = _geometry(Pc)
+    P = Pc.view(B, 5, bs, bs, bs)
+
+    def sound(T):
+        return torch.sqrt(fluid.gR * T.clamp(min=10.0))
+
+    a = sound(P[:, 1:2])
+    du, G, U, sf = [], [], [], []
+    for d in range(3):
+        h = _bview(meta[:, d])
+        ml = _edge_mask(meta, d, 0, bs)
+        mr = _edge_mask(meta, d, 1, bs)
+        Pm = _neighbor(P, meta, nbr_table, d, 0)
+        Pp = _neighbor(P, meta, nbr_table, d, 1)
+        Pf_m = (Pm * h + P * h) / (h + h) * ml
+        Pf_p = (P * h + Pp * h) / (h + h) * mr
+        fd_m = (P[:, 0:1] - Pm[:, 0:1]) * ml
+        fd_p = (Pp[:, 0:1] - P[:, 0:1]) * mr
+        du.append((Pf_p - Pf_m) / h)
+        G.append((fd_p - fd_m) / h)
+        U.append((fd_p.abs() + fd_m.abs()) / h)
+        if with_dt:
+            S = P[:, 2 + d:3 + d].abs() + a
+            Sm = Pm[:, 2 + d:3 + d].abs() + sound(Pm[:, 1:2])
+            Sp = Pp[:, 2 + d:3 + d].abs() + sound(Pp[:, 1:2])
+            sf_m = (Sm * h + S * h) / (h + h) * ml
+            sf_p = (S * h + Sp * h) / (h + h) * mr
+            sf.append((sf_p + sf_m) / h)
+    aux = torch.cat(G + U + sf, dim=1)
+    return (torch.cat(du, dim=1).reshape(B, 15, bs, bs * bs),
+            aux.reshape(B, aux.shape[1], bs, bs * bs))
+
+
+def euler_pass_a(fluid: Fluid, Pc, meta, nbr_table, *, with_dt: bool):
+    """RHS pass A: returns ``du [B, 15, bs, bs*bs]`` (Green-Gauss
+    gradients, dim-major) and ``aux [B, 9 | 6, bs, bs*bs]`` (G per dim, U
+    per dim, and with ``with_dt`` the wave-speed sums)."""
+    B, bs = _geometry(Pc)
+    dev = Pc.device
+    _check("P", Pc, (B, 5, bs, bs * bs), dev)
+    _check_tables(meta, nbr_table, B, dev)
+    if dev.type == "cpu":
+        return euler_pass_a_ref(fluid, Pc, meta, nbr_table, with_dt=with_dt)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    du = torch.empty((B, 15, bs, bs * bs), dtype=Pc.dtype, device=dev)
+    aux = torch.empty((B, 9 if with_dt else 6, bs, bs * bs),
+                      dtype=Pc.dtype, device=dev)
+    err = build().ibx_euler_pass_a(
+        _ptr(Pc), _ptr(meta), _ptr(nbr_table), _ptr(du), _ptr(aux), B,
+        bs.bit_length() - 1, int(with_dt), fluid.gR, _stream(dev))
+    _raise_on(err, "euler_pass_a")
+    launches["euler_pass_a"] += 1
+    return du, aux
+
+
+# ---------------------------------------------------------------------------
+# euler_pass_b
+# ---------------------------------------------------------------------------
+
+def _hll_cs(fluid: Fluid, PL, PR, d: int):
+    """Channel-split HLL flux (`_hll_flux`): channels on axis 1."""
+    def side(X):
+        p = X[:, 0:1]
+        T = X[:, 1:2].clamp(min=10.0)
+        u, v, w = X[:, 2:3], X[:, 3:4], X[:, 4:5]
+        kin = (u * u + v * v + w * w) / 2
+        rho = p / (fluid.R * T)
+        E = rho * (fluid.cv * T + kin)
+        Q = [rho, E, rho * u, rho * v, rho * w]
+        un = X[:, 2 + d:3 + d]
+        mom = [Q[2] * un, Q[3] * un, Q[4] * un]
+        mom[d] = mom[d] + p
+        F = [rho * un, (E + p) * un] + mom
+        return Q, F, un, torch.sqrt(fluid.gR * T)
+
+    QL, FL, uL, aL = side(PL)
+    QR, FR, uR, aR = side(PR)
+    SL = (uL + aL).clamp(min=0.0)
+    SR = (uR - aR).clamp(max=0.0)
+    denom = SL - SR
+    safe = denom > 0
+    den = torch.where(safe, denom, torch.ones_like(denom))
+    return torch.cat([
+        torch.where(safe, (SL * FL[k] - SR * FR[k] + SR * SL * (QR[k] - QL[k]))
+                    / den, torch.zeros_like(den))
+        for k in range(5)], dim=1)
+
+
+def _face_b(fluid: Fluid, high_order: bool, d: int, h, Wo, Wn):
+    """-HLL flux of the MUSCL-reconstructed face (`_face_b`); W stacks are
+    [P(5), du_d(5), nu(1)] on axis 1."""
+    Po, Pn, duo, dun = Wo[:, 0:5], Wn[:, 0:5], Wo[:, 5:10], Wn[:, 5:10]
+    down = h / 2
+    dneigh = h / 2
+    grad_f = (Pn - Po) / (down + dneigh)
+    slope_o = (2 * duo - grad_f) * down
+    slope_n = (2 * dun - grad_f) * dneigh
+    lim = torch.minimum(slope_n.abs(), slope_o.abs()) * (
+        torch.sign(slope_n) + torch.sign(slope_o)) / 2
+    D = torch.maximum(Wo[:, 10:11], Wn[:, 10:11]).clamp(min=1e-7)
+    uf = (Po * dneigh + Pn * down) / (down + dneigh)
+    if high_order:
+        uf = uf + (duo * down - dun * dneigh) / 8
+    PL = (Po + lim) * D + (1.0 - D) * uf
+    PR = (Pn - lim) * D + (1.0 - D) * uf
+    return -_hll_cs(fluid, PL, PR, d)
+
+
+def euler_pass_b_ref(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
+                     high_order: bool):
+    """Plain version of `euler_pass_b`: the expressions of `_kernel_b`
+    (every face evaluated from both of its cells)."""
+    B, bs = _geometry(Pc)
+    acc = None
+    for d in range(3):
+        W = torch.cat([Pc, du[:, 5 * d:5 * d + 5], nu], dim=1).view(
+            B, 11, bs, bs, bs)
+        h = _bview(meta[:, d])
+        Wm = _neighbor(W, meta, nbr_table, d, 0)
+        Wp = _neighbor(W, meta, nbr_table, d, 1)
+        Fm = _face_b(fluid, high_order, d, h, Wm, W) \
+            * _edge_mask(meta, d, 0, bs)
+        Fp = _face_b(fluid, high_order, d, h, W, Wp) \
+            * _edge_mask(meta, d, 1, bs)
+        Rd = (Fp - Fm) / h
+        acc = Rd if acc is None else acc + Rd
+    return acc.reshape(B, 5, bs, bs * bs)
+
+
+def euler_pass_b(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
+                 high_order: bool):
+    """RHS pass B: ``R [B, 5, bs, bs*bs]`` from the state, the pass-A
+    gradients ``du [B, 15, ..]`` (2:1-corrected) and the sensor
+    ``nu [B, 1, ..]``."""
+    B, bs = _geometry(Pc)
+    dev = Pc.device
+    _check("P", Pc, (B, 5, bs, bs * bs), dev)
+    _check("du", du, (B, 15, bs, bs * bs), dev)
+    _check("nu", nu, (B, 1, bs, bs * bs), dev)
+    _check_tables(meta, nbr_table, B, dev)
+    if dev.type == "cpu":
+        return euler_pass_b_ref(fluid, Pc, du, nu, meta, nbr_table,
+                                high_order=high_order)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    R = torch.empty_like(Pc)
+    err = build().ibx_euler_pass_b(
+        _ptr(Pc), _ptr(du), _ptr(nu), _ptr(meta), _ptr(nbr_table), _ptr(R),
+        B, bs.bit_length() - 1, int(high_order), fluid.R, fluid.cv,
+        fluid.gR, _stream(dev))
+    _raise_on(err, "euler_pass_b")
+    launches["euler_pass_b"] += 1
+    return R
