@@ -7,18 +7,25 @@ target).
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels of ibx_torch/csrc with nvcc;
-  3. kernel parity: each kernel against its plain PyTorch version on the
-     same CUDA tensors, on the bs=4 sphere (a smooth perturbation of the
-     flow) and on the full bs=16 sphere tables;
+  3. kernel parity: each kernel (pass B in both variants, without and with
+     the 2:1 fold) against its plain PyTorch version on the same CUDA
+     tensors, on the bs=4 sphere (a smooth perturbation of the flow) and
+     on the full bs=16 sphere tables; and the folded `euler_rhs_cs`
+     against the pre-added one on the same state;
   4. whole-step parity: one RK2 step of the bs=4 sphere on the card
-     (kernels) against the same step on the CPU (plain versions);
+     (kernels) against the same step on the CPU (plain versions): the
+     channel-split step, the grid step with the fold, and the grid step
+     with frozen gradients (its stage 2 on the torch-op body);
   5. main path: `build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16)` on
      the card (5,308,416 cells), 2 warm-up steps, then 100 steps of
-     `case.march` timed with CUDA events; every kernel must have been
-     launched twice a step;
-  6. per-kernel times at the main path's shapes (CUDA events over 20
+     `case.march` (channel-split) timed with CUDA events; each of its three
+     kernels must have been launched twice a step, the fold never;
+  6. grid path: from the same case, 2 warm-up steps, then 20 steps of
+     `case.march(..., grid=True, fold=True)`; a step must launch pass A
+     twice, pass B once in each variant and the update kernel never;
+  7. per-kernel times at the main path's shapes (CUDA events over 20
      launches) beside the plain version's time and the kernel's bound,
-     and a breakdown of one step;
+     and a breakdown of one step of each march;
 then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -60,6 +67,7 @@ RES_TOL = 1e-4           # resnorm, relative
 # per dim: pass A 80 (+26 for the dt bound); pass B two faces of 281
 # (MUSCL and blend 37 a channel, HLL sides 44, flux 50) plus 25 to
 # mask and accumulate
+# (the fold adds one add a corrected gradient load, a few thousand a block)
 FLOPS_PER_CELL = {"rk2_update": 62, "euler_pass_a_dt": 3 * 106,
                   "euler_pass_a": 3 * 80, "euler_pass_b": 3 * (2 * 281 + 25)}
 
@@ -104,9 +112,11 @@ def perturbed(case, seed=3):
 
 
 def kernel_inputs(case, Pc):
-    """The main path's operands for each kernel, derived from ``Pc``."""
+    """The main path's operands for each kernel, derived from ``Pc``; the
+    fold's (``du_f``, ``nu_f``, ``cols6``) are those of the grid march's
+    plain-RHS call."""
     from ibx_torch.ops import kernels as K
-    from ibx_torch.ops.rhs_cs import euler_rhs_cs
+    from ibx_torch.ops.rhs_cs import euler_rhs_cs, gradients_cs
 
     bt, fl = case.bt, case.fluid
     du, aux = K.euler_pass_a(fl, Pc, bt.meta, bt.nbr_table, with_dt=True)
@@ -117,13 +127,18 @@ def kernel_inputs(case, Pc):
     R0, dtb = euler_rhs_cs(bt, fl, Pc, with_dt=True)
     R1 = euler_rhs_cs(bt, fl, case.apply_bcs_cs(
         K.rk2_update(fl, Pc, R0, None, dtb, case.active_cs, case.cfl)))
-    return dict(du=du, nu=nu, R0=R0, R1=R1, dtb=dtb)
+    du_f, _, nu_f, cols6 = gradients_cs(bt, fl, Pc, with_dt=False,
+                                        fold=True)
+    assert cols6 is not None
+    return dict(du=du, nu=nu, R0=R0, R1=R1, dtb=dtb, du_f=du_f, nu_f=nu_f,
+                cols6=cols6)
 
 
 def kernel_parity(case, Pc, label):
     """Each kernel vs its plain version on the same CUDA tensors; returns
     the max abs error of each kernel's reported variant."""
     from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.rhs_cs import euler_rhs_cs
 
     bt, fl = case.bt, case.fluid
     x = kernel_inputs(case, Pc)
@@ -146,8 +161,24 @@ def kernel_parity(case, Pc, label):
         R_r = K.euler_pass_b_ref(fl, Pc, x["du"], x["nu"], bt.meta,
                                  bt.nbr_table, high_order=ho)
         check(f"euler_pass_b R (high_order={ho})", chan_err(R_r, R), TOL["R"])
+        Rf = K.euler_pass_b(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
+                            bt.nbr_table, high_order=ho, cols6=x["cols6"])
+        Rf_r = K.euler_pass_b_ref(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
+                                  bt.nbr_table, high_order=ho,
+                                  cols6=x["cols6"])
+        check(f"euler_pass_b_fold R (high_order={ho}, "
+              f"{x['cols6'][1].shape[0]} correction rows)",
+              chan_err(Rf_r, Rf), TOL["R"])
         if ho:
             errs["euler_pass_b"] = max_abs(R_r, R)
+            errs["euler_pass_b_fold"] = max_abs(Rf_r, Rf)
+    for with_dt in (True, False):
+        R_fold = euler_rhs_cs(bt, fl, Pc, with_dt=with_dt, fold=True)
+        R_pre = euler_rhs_cs(bt, fl, Pc, with_dt=with_dt)
+        if with_dt:
+            R_fold, R_pre = R_fold[0], R_pre[0]
+        check(f"euler_rhs_cs fold vs pre-add (with_dt={with_dt})",
+              chan_err(R_pre, R_fold), TOL["R"])
     for stage2 in (False, True):
         R1 = x["R1"] if stage2 else None
         out = K.rk2_update(fl, Pc, x["R0"], R1, x["dtb"], case.active_cs,
@@ -176,11 +207,13 @@ def time_ms(fn, reps=20):
     return e0.elapsed_time(e1) / reps
 
 
-def bound(n_cells, channels, flops_per_cell, n_blocks):
+def bound(n_cells, channels, flops_per_cell, n_blocks, extra_bytes=0):
     """Least time for the work: each input and output byte moved once (the
-    per-block tables included) at the HBM rate, or the float32 operations
-    at the peak rate, whichever is larger."""
-    nbytes = 4 * channels * n_cells + (16 * 4 + 8 * 4) * n_blocks
+    per-block tables and ``extra_bytes`` of other operands included) at the
+    HBM rate, or the float32 operations at the peak rate, whichever is
+    larger."""
+    nbytes = 4 * channels * n_cells + (16 * 4 + 8 * 4) * n_blocks \
+        + extra_bytes
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops_per_cell * n_cells / PEAK_F32_FLOP_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -234,12 +267,16 @@ def main() -> int:
 
     # 4. whole-step parity, card vs CPU
     case4_cpu = build_sphere3d(wall_h=0.25, block_size=4, device="cpu")
-    Pg, rg = case4.step(P4)
-    Pcpu, rc = case4_cpu.step(P4.cpu())
-    log("[step] bs=4 sphere, one RK2 step, card vs CPU")
-    check("state (per channel)", chan_err(Pcpu, Pg.cpu()), STEP_TOL)
-    check("resnorm (relative)",
-          abs(float(rg) - float(rc)) / abs(float(rc)), RES_TOL)
+    for label, kw in (("channel-split", {}),
+                      ("grid, fold", dict(grid=True, fold=True)),
+                      ("grid, frozen gradients",
+                       dict(grid=True, freeze_gradients=True))):
+        Pg, rg = case4.step(P4, **kw)
+        Pcpu, rc = case4_cpu.step(P4.cpu(), **kw)
+        log(f"[step] bs=4 sphere, one RK2 step ({label}), card vs CPU")
+        check("state (per channel)", chan_err(Pcpu, Pg.cpu()), STEP_TOL)
+        check("resnorm (relative)",
+              abs(float(rg) - float(rc)) / abs(float(rc)), RES_TOL)
 
     # 5. main path
     n_cells, n_blocks = case.dom.ncells, bt.n_blocks
@@ -271,10 +308,40 @@ def main() -> int:
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[main] launches: {main_launches}")
     assert finite, "non-finite state after the march"
-    for name in K.launches:
-        assert main_launches[name] == 2 * steps, (name, main_launches)
+    want = dict(rk2_update=2, euler_pass_a=2, euler_pass_b=2,
+                euler_pass_b_fold=0)
+    assert main_launches == {k: n * steps for k, n in want.items()}, \
+        main_launches
 
-    # 6. per-kernel times at the main path's shapes
+    # 6. grid path (the cell-major march with the fold), same case
+    g_steps = 20
+    Pg = case.march(P, 2, grid=True, fold=True)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    e0.record()
+    Pg = case.march(Pg, g_steps, grid=True, fold=True)
+    e1.record()
+    e1.synchronize()
+    g_host_s = time.perf_counter() - t0
+    grid_launches = dict(K.launches)
+    g_ms_step = e0.elapsed_time(e1) / g_steps
+    g_finite = bool(torch.isfinite(Pg).all())
+    log(f"[grid] {g_steps} steps of case.march(grid=True, fold=True): "
+        f"{g_ms_step:.3f} ms/step (CUDA events; host clock "
+        f"{g_host_s / g_steps * 1e3:.3f}), "
+        f"{n_cells / (g_ms_step / 1e3):.4e} cell-updates/s, "
+        f"finite {g_finite}")
+    log(f"[grid] launches: {grid_launches}")
+    assert g_finite, "non-finite state after the grid march"
+    want = dict(rk2_update=0, euler_pass_a=2, euler_pass_b=1,
+                euler_pass_b_fold=1)
+    assert grid_launches == {k: n * g_steps for k, n in want.items()}, \
+        grid_launches
+    launches = dict(main_launches,
+                    euler_pass_b_fold=grid_launches["euler_pass_b_fold"])
+
+    # 7. per-kernel times at the main path's shapes
     fl, Pc = case.fluid, case.to_cs(P)
     x = kernel_inputs(case, Pc)
     variants = {
@@ -299,7 +366,19 @@ def main() -> int:
             lambda: K.euler_pass_b_ref(fl, Pc, x["du"], x["nu"], bt.meta,
                                        bt.nbr_table, high_order=True),
             26, FLOPS_PER_CELL["euler_pass_b"]),
+        "euler_pass_b_fold": (
+            "high_order",
+            lambda: K.euler_pass_b(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
+                                   bt.nbr_table, high_order=True,
+                                   cols6=x["cols6"]),
+            lambda: K.euler_pass_b_ref(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
+                                       bt.nbr_table, high_order=True,
+                                       cols6=x["cols6"]),
+            26, FLOPS_PER_CELL["euler_pass_b"]),
     }
+    # the fold also reads its compact correction rows and row index
+    extra = {"euler_pass_b_fold": 4 * (x["cols6"][0].numel()
+                                       + x["cols6"][1].numel())}
     others = {
         "rk2_update stage 1": (
             lambda: K.rk2_update(fl, Pc, x["R0"], None, x["dtb"],
@@ -312,10 +391,13 @@ def main() -> int:
     }
     source = {"rk2_update": "ibx_torch/csrc/rk2_update.cu",
               "euler_pass_a": "ibx_torch/csrc/euler_pass_a.cu",
-              "euler_pass_b": "ibx_torch/csrc/euler_pass_b.cu"}
+              "euler_pass_b": "ibx_torch/csrc/euler_pass_b.cu",
+              "euler_pass_b_fold": "ibx_torch/csrc/euler_pass_b.cu"}
+    # the fold is the same pallas_call traced with have_cols=True
     replaces = {"rk2_update": "ibx/ops/pallas_rhs.py:908",
                 "euler_pass_a": "ibx/ops/pallas_rhs.py:420",
-                "euler_pass_b": "ibx/ops/pallas_rhs.py:470"}
+                "euler_pass_b": "ibx/ops/pallas_rhs.py:470",
+                "euler_pass_b_fold": "ibx/ops/pallas_rhs.py:470"}
     rows = []
     log(f"[kernels] {n_cells} cells, CUDA events over 20 launches; bounds at "
         f"{PEAK_BYTES_S / 1e12:g} TB/s and {PEAK_F32_FLOP_S / 1e12:g} "
@@ -323,14 +405,15 @@ def main() -> int:
     for name, (var, fk, fr, ch, fpc) in variants.items():
         ms = time_ms(fk)
         plain = time_ms(fr, reps=5)
-        b_ms, b_by = bound(n_cells, ch, fpc, n_blocks)
+        b_ms, b_by = bound(n_cells, ch, fpc, n_blocks, extra.get(name, 0))
         log(f"  {name} ({var}): {ms:.4f} ms, plain {plain:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {ch} channels), "
+            f"{b_ms:.4f} ms ({b_by}, {ch} channels + "
+            f"{extra.get(name, 0)} bytes), "
             f"{b_ms / ms:.1%} of bound, library none, "
-            f"launches on the main path {main_launches[name]}")
+            f"launches on its path {launches[name]}")
         rows.append(dict(name=name, route="cuda", source=source[name],
                          replaces=replaces[name],
-                         launches=main_launches[name],
+                         launches=launches[name],
                          max_abs_err=errs16[name], ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
                          variant=var))
@@ -341,18 +424,41 @@ def main() -> int:
             f"{b_ms / ms:.1%} of bound")
 
     # where one step's time goes (the parts, timed one by one)
-    from ibx_torch.ops.rhs_cs import euler_rhs_cs
+    from ibx_torch.ops.block_ops import euler_rhs_grid
+    from ibx_torch.ops.rhs_cs import cs_merge, cs_split, euler_rhs_cs
+    P3 = cs_merge(bt, Pc)
+    du_cs = x["du"]
     parts = {
         "euler_rhs_cs with dt (pass A + glue + pass B)":
             lambda: euler_rhs_cs(bt, fl, Pc, with_dt=True),
         "euler_rhs_cs without dt":
             lambda: euler_rhs_cs(bt, fl, Pc),
+        "euler_rhs_cs without dt, fold":
+            lambda: euler_rhs_cs(bt, fl, Pc, fold=True),
         "ghost BC (GhostBC.apply_cs)":
             lambda: case.apply_bcs_cs(Pc.clone()),
-        "state clone (subtract from the BC line)":
+        "state clone (subtract from the BC lines)":
             lambda: Pc.clone(),
     }
-    log(f"[breakdown] one step = {ms_step:.3f} ms; parts, 20 calls each:")
+    log(f"[breakdown] channel-split step = {ms_step:.3f} ms; parts, 20 "
+        f"calls each:")
+    for label, fn in parts.items():
+        log(f"  {label}: {time_ms(fn):.4f} ms")
+    parts = {
+        "euler_rhs_grid with dt (shim: split, euler_rhs_cs, 5 merges)":
+            lambda: euler_rhs_grid(bt, fl, P3, with_dt=True, cfl=case.cfl),
+        "euler_rhs_grid without dt, fold (split, euler_rhs_cs, merge)":
+            lambda: euler_rhs_grid(bt, fl, P3, fold=True),
+        "cs_split of the state (5 channels)": lambda: cs_split(bt, P3),
+        "cs_merge of R (5 channels)": lambda: cs_merge(bt, Pc),
+        "cs_merge of du and nu (3 x 5 + 1 channels)":
+            lambda: ([cs_merge(bt, du_cs[:, 5 * d:5 * d + 5])
+                      for d in range(3)], cs_merge(bt, x["nu"])),
+        "ghost BC (GhostBC.apply_grid)":
+            lambda: case.apply_bcs3(P3.clone()),
+    }
+    log(f"[breakdown] grid step = {g_ms_step:.3f} ms; parts, 20 calls "
+        f"each:")
     for label, fn in parts.items():
         log(f"  {label}: {time_ms(fn):.4f} ms")
 

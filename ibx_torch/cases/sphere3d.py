@@ -1,9 +1,12 @@
-"""3D STL-sphere Euler workload on the channel-split block march
-(counterpart of `ibx/cases/sphere3d.py` on its cs branch).
+"""3D STL-sphere Euler workload on the block march (counterpart of
+`ibx/cases/sphere3d.py` with ``use_blocks=True``).
 
 Octree mesh around a triangulated sphere, ghost-cell immersed boundary,
-6-sided farfield; the state stays ``[B, C, bs, bs*bs]`` across the march,
-whose three kernels run on the card.
+6-sided farfield. Two marches share one build: the channel-split march
+(the default, the JAX package's ``IBX_CS=1`` branch), whose state stays
+``[B, C, bs, bs*bs]``, and the cell-major grid march (``grid=True``, its
+``IBX_CS=0`` branch) through `block_ops.rk2_step_grid`, whose state stays
+``[B, bs, bs, bs, C]``. Both run their kernels on the card.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from ..geometry.inside import points_inside
 from ..geometry.octree import build_mesh
 from ..geometry.refine import refine_to_length
 from ..geometry.stereolitography import Stereolitography, merge_points
-from ..ops.block_ops import to_blocks, to_flat
+from ..ops.block_ops import rk2_step_grid, to_blocks, to_flat
 from ..ops.rhs_cs import cs_merge, cs_split, rk2_step_cs
 from ..physics.bc import apply_flow_bc, flow_bc
 from ..physics.fluid import Fluid, make_fluid, physicality_guard
@@ -67,6 +70,7 @@ class Sphere3dCase:
     bc: GhostBC
     bc_fns: dict
     active_cs: torch.Tensor   # f32[B, 1, bs, bs*bs] 0/1 freeze mask
+    active3: torch.Tensor     # f32[B, bs, bs, bs], the same mask
     P0: torch.Tensor          # f32[N, 5] flat initial state (ghosts set)
     build_seconds: float      # host build + table upload
 
@@ -74,11 +78,23 @@ class Sphere3dCase:
         """Ghost BCs on the cs state, in place."""
         return self.bc.apply_cs(Pc, self.bc_fns, guard=physicality_guard)
 
-    def step_cs(self, Pc):
+    def apply_bcs3(self, P3):
+        """Ghost BCs on the cell-major grid state, in place."""
+        return self.bc.apply_grid(P3, self.bc_fns, guard=physicality_guard)
+
+    def step_cs(self, Pc, *, fold: bool = False):
         """One RK2 step on the cs state: (Pc, resnorm)."""
         return rk2_step_cs(self.bt, self.fluid, Pc, self.apply_bcs_cs,
                            cfl=self.cfl, high_order=self.high_order,
-                           active_cs=self.active_cs)
+                           active_cs=self.active_cs, fold=fold)
+
+    def step_grid(self, P3, *, freeze_gradients: bool = False,
+                  fold: bool = False):
+        """One RK2 step on the cell-major grid state: (P3, resnorm)."""
+        return rk2_step_grid(self.bt, self.fluid, P3, self.apply_bcs3,
+                             cfl=self.cfl, high_order=self.high_order,
+                             active3=self.active3,
+                             freeze_gradients=freeze_gradients, fold=fold)
 
     def to_cs(self, P):
         return cs_split(self.bt, to_blocks(self.bt, P))
@@ -86,18 +102,41 @@ class Sphere3dCase:
     def from_cs(self, Pc):
         return to_flat(self.bt, cs_merge(self.bt, Pc))
 
-    def step(self, P):
-        """One RK2 step on the flat [N, 5] state: (P, resnorm)."""
-        Pc, res = self.step_cs(self.to_cs(P))
-        return self.from_cs(Pc), res
+    def _march_fns(self, grid: bool, freeze_gradients: bool, fold: bool):
+        """(to state, one step, to flat) of the chosen march."""
+        if grid:
+            return ((lambda P: to_blocks(self.bt, P)),
+                    (lambda X: self.step_grid(
+                        X, freeze_gradients=freeze_gradients, fold=fold)),
+                    (lambda X: to_flat(self.bt, X)))
+        if freeze_gradients:
+            raise ValueError("freeze_gradients needs the grid march "
+                             "(grid=True)")
+        return (self.to_cs, (lambda X: self.step_cs(X, fold=fold)),
+                self.from_cs)
 
-    def march(self, P, n_steps: int):
-        """``n_steps`` RK2 steps from the flat state; the state stays
-        channel-split in between."""
-        Pc = self.to_cs(P)
+    def step(self, P, *, grid: bool = False, freeze_gradients: bool = False,
+             fold: bool = False):
+        """One RK2 step on the flat [N, 5] state: (P, resnorm). ``grid``
+        takes the cell-major grid march instead of the channel-split one;
+        ``fold`` hands pass B its 2:1 gradient corrections to add as it
+        loads them; ``freeze_gradients`` (grid march only) reuses stage
+        1's gradients in stage 2."""
+        to_state, one, to_flat_ = self._march_fns(grid, freeze_gradients,
+                                                  fold)
+        X, res = one(to_state(P))
+        return to_flat_(X), res
+
+    def march(self, P, n_steps: int, *, grid: bool = False,
+              freeze_gradients: bool = False, fold: bool = False):
+        """``n_steps`` RK2 steps from the flat state (options as in
+        `step`); the state keeps its march's layout in between."""
+        to_state, one, to_flat_ = self._march_fns(grid, freeze_gradients,
+                                                  fold)
+        X = to_state(P)
         for _ in range(n_steps):
-            Pc, _ = self.step_cs(Pc)
-        return self.from_cs(Pc)
+            X, _ = one(X)
+        return to_flat_(X)
 
 
 def build_sphere3d(
@@ -156,14 +195,15 @@ def build_sphere3d(
                                _collect_families(dom, FAMILIES), FAMILIES,
                                device)
     active = torch.as_tensor((~inside).astype(np.float32), device=device)
-    active_cs = cs_split(bt, to_blocks(bt, active[:, None]))
+    active3 = to_blocks(bt, active[:, None])[..., 0]
+    active_cs = cs_split(bt, active3[..., None])
 
     P0 = np.tile(P_inf, (dom.ncells, 1))
     P0[inside, 2:] = 0.0
     case = Sphere3dCase(
         dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, cfl=cfl,
         high_order=high_order, bt=bt, bc=bc, bc_fns=bc_fns,
-        active_cs=active_cs, P0=None, build_seconds=0.0)
+        active_cs=active_cs, active3=active3, P0=None, build_seconds=0.0)
     Pc0 = case.apply_bcs_cs(case.to_cs(torch.as_tensor(P0, device=device)))
     case.P0 = case.from_cs(Pc0)
     if device.type == "cuda":

@@ -1,9 +1,11 @@
 // euler_pass_b: RHS pass B on the channel-split block grid.
 //
 // Replaces the Pallas kernel `_kernel_b` / `run_kernel_b` of
-// ibx/ops/pallas_rhs.py (with its helpers `_face_b` and `_hll_flux`), on
-// its default path (no `have_cols` fold). Per cell and dim d, each of the
-// cell's two faces along d gets:
+// ibx/ops/pallas_rhs.py (with its helpers `_face_b` and `_hll_flux`), in
+// both of its variants: the default (no `have_cols`), which reads gradients
+// whose 2:1 corrections the glue has already added, and the `have_cols`
+// fold (`_edge_corr`), which adds them as it loads (template FOLD below).
+// Per cell and dim d, each of the cell's two faces along d gets:
 //   MUSCL slopes limited by minmod, the JST blend with
 //   D = max(nu_o, nu_n, 1e-7), the optional high-order face value, and the
 //   HLL flux with the reference's one-sided wave speeds
@@ -22,6 +24,22 @@
 // flux arithmetic against a once-per-face evaluation but needs no
 // cross-thread exchange; the TPU "shift F_minus and patch the far plane"
 // trick is not carried over.
+//
+// The fold: the TPU kernel takes 12 placed full-B operands (own block's
+// corrections for both sides of every dim, and each neighbor slot's
+// correction gathered at the neighbor) and adds them to whole gradient
+// blocks before its shifts. Here a correction belongs to the block whose
+// gradient is read: `load_du` adds block r.b's side-s row whenever the
+// cell r it reads lies on the side-s edge of r.b along d. That covers the
+// own cell, an own edge cell read by an interior neighbor, the mirrored own
+// cell of a bnd side and a neighbor block's used edge with one rule. The
+// operands are compact: `rows` [B, 6] gives, per block and (d, s), a row of
+// `vals` [V, 5, bs*bs] (-1 where the block has no interface there), with
+// the lateral index hi-major over the other two dims ((y, x) for d = 2,
+// (z, x) for d = 1, (z, y) for d = 0). On the 5.3M-cell sphere V = 1440
+// rows (7.4 MB) against 79 MB for the TPU's 12 placed operands. The value
+// loaded is du + c, one float32 add as in the pre-add path, so the folded
+// R equals the pre-added R up to FMA contraction.
 
 #include "block_cells.cuh"
 
@@ -30,6 +48,37 @@ namespace {
 struct Gas {
   float R, cv, gR;
 };
+
+// Compact 2:1 gradient corrections of the fold (see the head comment).
+struct Fold {
+  const int* rows;    // [B, 6], row of (d, s) at 2d + s
+  const float* vals;  // [V, 5, bs*bs]
+};
+
+// The 5 gradient channels of dim d at cell r, with FOLD the block's 2:1
+// correction added where r lies on a side-s edge of its block along d
+// (the value the pre-add path would have stored in du).
+template <bool FOLD>
+__device__ __forceinline__ void load_du(const float* __restrict__ du,
+                                        CellRef r, int d, int lbs, int npb,
+                                        Fold f, float* out) {
+#pragma unroll
+  for (int c = 0; c < 5; ++c) out[c] = du[cell_at(r, 15, 5 * d + c, npb)];
+  if (!FOLD) return;
+  const int bs = 1 << lbs;
+  const int cd = (r.w >> (lbs * d)) & (bs - 1);
+  if (cd != 0 && cd != bs - 1) return;
+  const int row = f.rows[6LL * r.b + 2 * d + (cd == 0 ? 0 : 1)];
+  if (row < 0) return;
+  const int nl = bs * bs;
+  const int l = d == 2   ? (r.w & (nl - 1))
+                : d == 1 ? (((r.w >> (2 * lbs)) << lbs) | (r.w & (bs - 1)))
+                         : (r.w >> lbs);
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    out[c] = out[c] + f.vals[((long long)row * 5 + c) * nl + l];
+  }
+}
 
 __device__ __forceinline__ float sgnf(float x) {
   return (float)((x > 0.f) - (x < 0.f));
@@ -98,11 +147,12 @@ __device__ __forceinline__ void face_b(int d, float h, bool high_order,
   }
 }
 
+template <bool FOLD>
 __global__ void euler_pass_b_kernel(
     const float* __restrict__ P, const float* __restrict__ du,
     const float* __restrict__ nu, const float* __restrict__ meta,
-    const int* __restrict__ nbr, float* __restrict__ R, int n_blocks,
-    int lbs, int high_order, Gas g) {
+    const int* __restrict__ nbr, Fold fold, float* __restrict__ R,
+    int n_blocks, int lbs, int high_order, Gas g) {
   const int npb = 1 << (3 * lbs);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)n_blocks * npb) return;
@@ -128,11 +178,11 @@ __global__ void euler_pass_b_kernel(
     const CellRef rm = neighbor_cell(b, w, d, 0, lbs, m, nb);
     const CellRef rp = neighbor_cell(b, w, d, 1, lbs, m, nb);
     float g0[5], gm[5], gp[5], xm[5], xp[5];
+    load_du<FOLD>(du, own, d, lbs, npb, fold, g0);
+    load_du<FOLD>(du, rm, d, lbs, npb, fold, gm);
+    load_du<FOLD>(du, rp, d, lbs, npb, fold, gp);
 #pragma unroll
     for (int c = 0; c < 5; ++c) {
-      g0[c] = du[cell_at(own, 15, 5 * d + c, npb)];
-      gm[c] = du[cell_at(rm, 15, 5 * d + c, npb)];
-      gp[c] = du[cell_at(rp, 15, 5 * d + c, npb)];
       xm[c] = P[cell_at(rm, 5, c, npb)];
       xp[c] = P[cell_at(rp, 5, c, npb)];
     }
@@ -153,18 +203,28 @@ __global__ void euler_pass_b_kernel(
 }  // namespace
 
 // P [B, 5, npb], du [B, 15, npb], nu [B, 1, npb] -> R [B, 5, npb].
-// Returns cudaGetLastError() after the launch.
+// fold_rows [B, 6] and fold_vals [V, 5, bs*bs] are the fold's operands, or
+// both null for the default variant. Returns cudaGetLastError() after the
+// launch.
 extern "C" int ibx_euler_pass_b(const float* P, const float* du,
                                 const float* nu, const float* meta,
-                                const int* nbr, float* R, int n_blocks,
-                                int lbs, int high_order, float gas_R,
-                                float cv, float gR, void* stream) {
+                                const int* nbr, const int* fold_rows,
+                                const float* fold_vals, float* R,
+                                int n_blocks, int lbs, int high_order,
+                                float gas_R, float cv, float gR,
+                                void* stream) {
   const int threads = 256;
   const long long n = (long long)n_blocks << (3 * lbs);
-  const long long blocks = (n + threads - 1) / threads;
-  euler_pass_b_kernel<<<(unsigned)blocks, threads, 0,
-                        (cudaStream_t)stream>>>(
-      P, du, nu, meta, nbr, R, n_blocks, lbs, high_order,
-      Gas{gas_R, cv, gR});
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const Fold fold{fold_rows, fold_vals};
+  const Gas g{gas_R, cv, gR};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fold_rows != nullptr) {
+    euler_pass_b_kernel<true><<<blocks, threads, 0, st>>>(
+        P, du, nu, meta, nbr, fold, R, n_blocks, lbs, high_order, g);
+  } else {
+    euler_pass_b_kernel<false><<<blocks, threads, 0, st>>>(
+        P, du, nu, meta, nbr, fold, R, n_blocks, lbs, high_order, g);
+  }
   return (int)cudaGetLastError();
 }

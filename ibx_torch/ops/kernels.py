@@ -1,11 +1,12 @@
-"""The three hand-written CUDA kernels of the channel-split march, their
-wrappers, launch counters and plain PyTorch versions.
+"""The hand-written CUDA kernels of the block march, their wrappers,
+launch counters and plain PyTorch versions.
 
-| kernel         | source                  | replaces (ibx/ops/pallas_rhs.py)  |
-| -------------- | ----------------------- | --------------------------------- |
-| `rk2_update`   | csrc/rk2_update.cu      | `_kernel_update` / `run_update`   |
-| `euler_pass_a` | csrc/euler_pass_a.cu    | `_kernel_a` / `run_kernel_a`      |
-| `euler_pass_b` | csrc/euler_pass_b.cu    | `_kernel_b` / `run_kernel_b`      |
+| kernel (counter)    | source               | replaces (pallas_rhs.py)  |
+| ------------------- | -------------------- | ------------------------- |
+| `rk2_update`        | csrc/rk2_update.cu   | `_kernel_update`          |
+| `euler_pass_a`      | csrc/euler_pass_a.cu | `_kernel_a`               |
+| `euler_pass_b`      | csrc/euler_pass_b.cu | `_kernel_b`               |
+| `euler_pass_b_fold` | csrc/euler_pass_b.cu | `_kernel_b`, `have_cols`  |
 
 All grids are float32 ``[B, C, bs, bs*bs]`` (within-block cell index
 w = z*bs^2 + y*bs + x). The kernels are compiled for ``sm_90a`` with
@@ -42,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 launches: Dict[str, int] = {"rk2_update": 0, "euler_pass_a": 0,
-                            "euler_pass_b": 0}
+                            "euler_pass_b": 0, "euler_pass_b_fold": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -103,7 +104,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         ctypes.c_longlong
     lib.ibx_rk2_update.argtypes = [p, p, p, p, p, p, ll, i, f, f, f, f, p]
     lib.ibx_euler_pass_a.argtypes = [p, p, p, p, p, i, i, i, f, p]
-    lib.ibx_euler_pass_b.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f, p]
+    lib.ibx_euler_pass_b.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f,
+                                     f, p]
     for fn in (lib.ibx_rk2_update, lib.ibx_euler_pass_a,
                lib.ibx_euler_pass_b):
         fn.restype = ctypes.c_int
@@ -373,11 +375,33 @@ def _face_b(fluid: Fluid, high_order: bool, d: int, h, Wo, Wn):
     return -_hll_cs(fluid, PL, PR, d)
 
 
+def fold_du_ref(du, cols6):
+    """``du`` [B, 15, bs, bs*bs] with the fold's 2:1 corrections added at
+    the side-s edge planes of each dim's channels (a new tensor): the values
+    the fold kernel loads, and those the pre-add path stores."""
+    rows, vals = cols6
+    B, _, bs, _ = du.shape
+    out = du.clone()
+    o5 = out.view(B, 15, bs, bs, bs)
+    v4 = vals.view(vals.shape[0], 5, bs, bs)
+    for d in range(3):
+        for s in range(2):
+            r = rows[:, 2 * d + s].long()
+            blocks = torch.nonzero(r >= 0).flatten()
+            if blocks.numel():
+                o5[:, 5 * d:5 * d + 5].select(4 - d, bs - 1 if s else 0) \
+                    .index_add_(0, blocks, v4[r[blocks]])
+    return out
+
+
 def euler_pass_b_ref(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
-                     high_order: bool):
+                     high_order: bool, cols6=None):
     """Plain version of `euler_pass_b`: the expressions of `_kernel_b`
-    (every face evaluated from both of its cells)."""
+    (every face evaluated from both of its cells); with ``cols6`` the
+    corrections are added to ``du`` first (`fold_du_ref`)."""
     B, bs = _geometry(Pc)
+    if cols6 is not None:
+        du = fold_du_ref(du, cols6)
     acc = None
     for d in range(3):
         W = torch.cat([Pc, du[:, 5 * d:5 * d + 5], nu], dim=1).view(
@@ -395,26 +419,42 @@ def euler_pass_b_ref(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
 
 
 def euler_pass_b(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
-                 high_order: bool):
+                 high_order: bool, cols6=None):
     """RHS pass B: ``R [B, 5, bs, bs*bs]`` from the state, the pass-A
-    gradients ``du [B, 15, ..]`` (2:1-corrected) and the sensor
-    ``nu [B, 1, ..]``."""
+    gradients ``du [B, 15, ..]`` and the sensor ``nu [B, 1, ..]``.
+
+    Without ``cols6`` the gradients carry their 2:1 corrections already.
+    With ``cols6 = (rows, vals)`` the kernel adds them as it loads (the
+    `have_cols` fold, counted as ``euler_pass_b_fold``): ``rows`` int32
+    [B, 6] is the row of ``vals`` f32 [V, 5, bs*bs] holding block b's
+    correction on side s of dim d at column 2d + s, or -1; a row's lateral
+    index is hi-major over the other two dims ((y, x) for d = 2, (z, x) for
+    d = 1, (z, y) for d = 0), as in the JAX package's placed operands."""
     B, bs = _geometry(Pc)
     dev = Pc.device
     _check("P", Pc, (B, 5, bs, bs * bs), dev)
     _check("du", du, (B, 15, bs, bs * bs), dev)
     _check("nu", nu, (B, 1, bs, bs * bs), dev)
     _check_tables(meta, nbr_table, B, dev)
+    rows = vals = None
+    if cols6 is not None:
+        rows, vals = cols6
+        if rows.device != dev or rows.dtype != torch.int32 \
+                or tuple(rows.shape) != (B, 6) or not rows.is_contiguous():
+            raise ValueError("cols6 rows must be a contiguous int32 [B, 6] "
+                             f"tensor on {dev}")
+        _check("cols6 vals", vals, (vals.shape[0], 5, bs * bs), dev)
     if dev.type == "cpu":
         return euler_pass_b_ref(fluid, Pc, du, nu, meta, nbr_table,
-                                high_order=high_order)
+                                high_order=high_order, cols6=cols6)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    name = "euler_pass_b" if cols6 is None else "euler_pass_b_fold"
     R = torch.empty_like(Pc)
     err = build().ibx_euler_pass_b(
-        _ptr(Pc), _ptr(du), _ptr(nu), _ptr(meta), _ptr(nbr_table), _ptr(R),
-        B, bs.bit_length() - 1, int(high_order), fluid.R, fluid.cv,
-        fluid.gR, _stream(dev))
-    _raise_on(err, "euler_pass_b")
-    launches["euler_pass_b"] += 1
+        _ptr(Pc), _ptr(du), _ptr(nu), _ptr(meta), _ptr(nbr_table),
+        _ptr(rows), _ptr(vals), _ptr(R), B, bs.bit_length() - 1,
+        int(high_order), fluid.R, fluid.cv, fluid.gR, _stream(dev))
+    _raise_on(err, name)
+    launches[name] += 1
     return R

@@ -1,13 +1,17 @@
 """Channel-split Euler RHS and TVD-RK2 step: the counterpart of
-`ibx/ops/pallas_rhs.py` (`cs_split`, `cs_merge`, `euler_rhs_cs` on its
-default pre-add path, `rk2_step_cs`).
+`ibx/ops/pallas_rhs.py` (`cs_split`, `cs_merge`, `pallas_eligible`,
+`euler_rhs_cs` with its pre-add and fold paths, the cell-major shim
+`euler_rhs_grid_pallas`, `rk2_step_cs`).
 
 The state stays ``[B, C, bs, bs*bs]`` across the march. Per RHS
 evaluation: kernel pass A (`kernels.euler_pass_a`), the structured 2:1
 interface corrections of its outputs (tensor-op glue over the few
 interface blocks), the sensor assembly, kernel pass B
-(`kernels.euler_pass_b`) and the 2:1 corrections of R. The RK2 stages are
-kernel `rk2_update` followed by the ghost BC.
+(`kernels.euler_pass_b`) and the 2:1 corrections of R. The gradient
+corrections are either added to ``du`` before pass B (the default) or
+handed to pass B's fold variant, which adds them as it loads (``fold``,
+the counterpart of ``IBX_CS_FOLD=1``). The RK2 stages are kernel
+`rk2_update` followed by the ghost BC.
 """
 
 from __future__ import annotations
@@ -17,7 +21,6 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..physics.fluid import Fluid, speed_of_sound
-from ..physics.flux import inviscid_fluxes_hll
 from ..topology.blocks import BlockTables
 from . import block_ops as bo
 from .kernels import euler_pass_a, euler_pass_b, rk2_update
@@ -48,11 +51,16 @@ def _edge_plane(X5, d: int, e: int):
 
 def _cs_edge_fetch(bt: BlockTables, arrays_cs, d: int,
                    extra_fn: Optional[Callable] = None,
-                   channel_slice: Optional[Sequence] = None):
+                   channel_slice: Optional[Sequence] = None,
+                   plane_fix: Optional[Sequence] = None):
     """``fetch(s, blocks)`` for `block_ops.interface_corrections` over
     channel-split operands: the side-s edge planes of the given blocks,
     channel-last [V, bs, bs, Ktot] (only the planes are gathered).
-    ``channel_slice[i]``: optional (c0, c1) channel range of part i."""
+    ``channel_slice[i]``: optional (c0, c1) channel range of part i.
+    ``plane_fix[i]``: optional (idx [B, 2], vals [V + 1, bs, bs, Ci]); the
+    row ``vals[idx[b, s]]`` is added to part i's side-s plane of block b
+    (the fold keeps ``du`` uncorrected, so the glue reads corrected planes
+    this way; the last row of ``vals`` is zero)."""
     bs = bt.block_size
 
     def fetch(s, blocks):
@@ -63,7 +71,11 @@ def _cs_edge_fetch(bt: BlockTables, arrays_cs, d: int,
             if channel_slice is not None and channel_slice[i] is not None:
                 c0, c1 = channel_slice[i]
                 X5 = X5[:, c0:c1]
-            outs.append(_edge_plane(X5, d, e)[blocks].permute(0, 2, 3, 1))
+            plane = _edge_plane(X5, d, e)[blocks].permute(0, 2, 3, 1)
+            if plane_fix is not None and plane_fix[i] is not None:
+                idx, vals = plane_fix[i]
+                plane = plane + vals[idx[blocks, s]]
+            outs.append(plane)
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
         return out if extra_fn is None else extra_fn(out)
 
@@ -90,17 +102,32 @@ def _cols_add_cs(bt: BlockTables, Xc, cols, d: int, ch0: int, ch1: int,
         _edge_plane(X5, d, bs - 1 if s else 0).index_add_(0, blocks, add)
 
 
-def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
-                 high_order: bool = True, with_dt: bool = False):
-    """Channel-split RHS ``Rc [B, 5, bs, bs*bs]``; with ``with_dt`` also the
-    per-cell wave-speed bound ``dtb [B, 1, bs, bs*bs]`` (not yet
-    cfl-scaled)."""
+def pallas_eligible(bt: BlockTables, *, viscous: bool = False, fix3=None,
+                    cut3=None, frozen=None, mu_t3=None) -> bool:
+    """Static gate of the kernel route (`ibx/ops/pallas_rhs.py`
+    `pallas_eligible`): the 3D Euler configuration without frozen
+    gradients or extra physics. The JAX gate also asks for a block size of
+    8 or 16, the TPU kernels' tilings; the CUDA kernels take any power of
+    two, which `BlockTables.from_numpy` already demands, as it demands that
+    no generic sparse leftover exists."""
+    return (bt.nd == 3 and not viscous and fix3 is None and cut3 is None
+            and frozen is None and mu_t3 is None)
+
+
+def gradients_cs(bt: BlockTables, fluid: Fluid, Pc, *, with_dt: bool,
+                 fold: bool = False):
+    """Pass A with its 2:1 corrections and the sensor: returns ``(du_cs,
+    aux, nu_cs, cols6)``. Without ``fold`` the gradient corrections are
+    added to ``du_cs`` and ``cols6`` is None; with ``fold`` ``du_cs`` stays
+    uncorrected and ``cols6 = (bt.fold_rows, vals)`` holds them for
+    `kernels.euler_pass_b` (None when the mesh has no 2:1 interface)."""
     nd, bs, B = bt.nd, bt.block_size, bt.n_blocks
     ncomp = Pc.shape[1]
     du_cs, aux = euler_pass_a(fluid, Pc, bt.meta, bt.nbr_table,
                               with_dt=with_dt)
+    fold_cols = []     # channel-last du corrections, (d, s) order
+    face_A = bo.cat_fn(bo.face_a(with_dt), [ncomp, 1] if with_dt else [ncomp])
 
-    # 2:1 interface corrections for pass A
     signedA = [1.0] * (ncomp + 1) + [0.0] * (2 if with_dt else 1)
     for d in range(nd):
         if not _has_ifc(bt, d):
@@ -111,21 +138,13 @@ def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
                 return torch.cat([pp, Sd[..., None]], dim=-1)
         else:
             extraA = None
-
-        def face_A(Wo, Wn, ho, hn):
-            Po, Pn = Wo[..., :ncomp], Wn[..., :ncomp]
-            Pf = (Po * hn + Pn * ho) / (ho + hn)
-            fd = Pn[..., 0:1] - Po[..., 0:1]
-            out = [Pf, fd, fd.abs()]
-            if with_dt:
-                So, Sn = Wo[..., ncomp:], Wn[..., ncomp:]
-                out.append((So * hn + Sn * ho) / (ho + hn))
-            return torch.cat(out, dim=-1)
-
         cols = bo.interface_corrections(
             bt, d, face_A, signedA, _cs_edge_fetch(bt, [Pc], d, extraA))
         # cols channels: [du(5), G, U (, sf)] -> kernel-A outputs
-        _cols_add_cs(bt, du_cs, cols, d, d * 5, (d + 1) * 5, 0)
+        if fold:
+            fold_cols += [c[1][..., 0:5] for c in cols if c is not None]
+        else:
+            _cols_add_cs(bt, du_cs, cols, d, d * 5, (d + 1) * 5, 0)
         _cols_add_cs(bt, aux, cols, d, d, d + 1, 5)
         _cols_add_cs(bt, aux, cols, d, nd + d, nd + d + 1, 6)
         if with_dt:
@@ -137,57 +156,96 @@ def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
         nu_cs = torch.maximum(
             nu_cs, (1e-7 + aux[:, d:d + 1].abs())
             / (1e-7 + aux[:, nd + d:nd + d + 1]))
+    cols6 = None
+    if fold_cols:
+        # the rows come in the order `BlockTables.fold_rows` numbers them
+        cl = torch.cat(fold_cols)
+        cols6 = (bt.fold_rows,
+                 cl.permute(0, 3, 1, 2).reshape(cl.shape[0], 5, bs * bs)
+                 .contiguous())
+    return du_cs, aux, nu_cs, cols6
 
+
+def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
+                 high_order: bool = True, with_dt: bool = False,
+                 with_frozen: bool = False, fold: bool = False):
+    """Channel-split RHS ``Rc [B, 5, bs, bs*bs]``; with ``with_dt`` also the
+    per-cell wave-speed bound ``dtb [B, 1, bs, bs*bs]`` (not yet
+    cfl-scaled); with ``with_frozen`` also the corrected ``(du_cs,
+    nu_cs)``, last. ``fold`` hands the 2:1 gradient corrections to pass B's
+    fold kernel instead of adding them to ``du_cs``; ``with_frozen`` turns
+    it off, since it hands ``du_cs`` out."""
+    nd, bs = bt.nd, bt.block_size
+    ncomp = Pc.shape[1]
+    fold = fold and not with_frozen
+    du_cs, aux, nu_cs, cols6 = gradients_cs(bt, fluid, Pc, with_dt=with_dt,
+                                            fold=fold)
     Rc = euler_pass_b(fluid, Pc, du_cs, nu_cs, bt.meta, bt.nbr_table,
-                      high_order=high_order)
+                      high_order=high_order, cols6=cols6)
+
+    du_fix = None
+    if cols6 is not None:
+        # the glue reads corrected du planes: row idx[b, s] of the
+        # channel-last corrections (a zero row where block b has none)
+        vals = cols6[1].view(-1, 5, bs, bs).permute(0, 2, 3, 1)
+        vals = torch.cat([vals, vals.new_zeros((1, bs, bs, 5))])
+        rows = bt.fold_rows.long()
+        idx = torch.where(rows >= 0, rows, vals.shape[0] - 1)
 
     # 2:1 interface corrections for pass B
     for d in range(nd):
         if not _has_ifc(bt, d):
             continue
-
-        def face_B(Wo, Wn, ho, hn, d=d):
-            Po, Pn = Wo[..., 0:5], Wn[..., 0:5]
-            duo, dun = Wo[..., 5:10], Wn[..., 5:10]
-            Do, Dn = Wo[..., 10:11], Wn[..., 10:11]
-            down, dneigh = ho / 2, hn / 2
-            grad_f = (Pn - Po) / (down + dneigh)
-            slope_o = (2 * duo - grad_f) * down
-            slope_n = (2 * dun - grad_f) * dneigh
-            lim = bo.minmod(slope_n, slope_o)
-            PL = Po + lim
-            PR = Pn - lim
-            D = torch.maximum(Do, Dn).clamp(min=1e-7)
-            uf = (Po * dneigh + Pn * down) / (down + dneigh)
-            if high_order:
-                uf = uf + (duo * down - dun * dneigh) / 8
-            PL = PL * D + (1.0 - D) * uf
-            PR = PR * D + (1.0 - D) * uf
-            return -inviscid_fluxes_hll(fluid, PL, PR, d)
-
+        if cols6 is not None:
+            du_fix = [None, (idx[:, 2 * d:2 * d + 2], vals), None]
         fetchB = _cs_edge_fetch(
             bt, [Pc, du_cs, nu_cs], d,
-            channel_slice=[None, (d * 5, (d + 1) * 5), None])
+            channel_slice=[None, (d * 5, (d + 1) * 5), None],
+            plane_fix=du_fix)
+        face_B = bo.cat_fn(bo.face_b(fluid, high_order, d), [ncomp, 5, 1])
         cols = bo.interface_corrections(bt, d, face_B, [1.0] * ncomp, fetchB)
         _cols_add_cs(bt, Rc, cols, d, 0, ncomp)
 
+    out = [Rc]
     if with_dt:
-        return Rc, aux[:, 2 * nd:2 * nd + 1] + aux[:, 2 * nd + 1:2 * nd + 2] \
-            + aux[:, 2 * nd + 2:2 * nd + 3]
-    return Rc
+        out.append(aux[:, 2 * nd:2 * nd + 1] + aux[:, 2 * nd + 1:2 * nd + 2]
+                   + aux[:, 2 * nd + 2:2 * nd + 3])
+    if with_frozen:
+        out.append((du_cs, nu_cs))
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def euler_rhs_grid_pallas(bt: BlockTables, fluid: Fluid, P3, *,
+                          high_order: bool = True, with_dt: bool = False,
+                          cfl: float = 0.8, fold: bool = False):
+    """Kernel route of `block_ops.euler_rhs_grid` on the cell-major state
+    ``[B, bs, bs, bs, C]``: the same (R3 [, dt3, (du3_list, nu3)])
+    structure, through `euler_rhs_cs` between a `cs_split` and a
+    `cs_merge`. A ``with_dt`` call hands out the frozen gradients, so it
+    runs without the fold; ``fold`` reaches the plain-RHS call."""
+    bs, B = bt.block_size, bt.n_blocks
+    out = euler_rhs_cs(bt, fluid, cs_split(bt, P3), high_order=high_order,
+                       with_dt=with_dt, with_frozen=with_dt, fold=fold)
+    if not with_dt:
+        return cs_merge(bt, out)
+    Rc, dtb, (du_cs, nu_cs) = out
+    dt3 = (cfl / dtb[:, 0]).reshape(B, bs, bs, bs)
+    du3 = [cs_merge(bt, du_cs[:, d * 5:(d + 1) * 5]) for d in range(3)]
+    return cs_merge(bt, Rc), dt3, (du3, cs_merge(bt, nu_cs))
 
 
 def rk2_step_cs(bt: BlockTables, fluid: Fluid, Pc, apply_bcs_cs: Callable,
                 *, cfl: float = 0.8, high_order: bool = True,
-                active_cs=None):
+                active_cs=None, fold: bool = False):
     """Local-dt TVD-RK2 pseudo step on the channel-split state (reference
     semantics ``src/ImmersedBoundary.jl:873-1157``). ``apply_bcs_cs`` maps
     a cs grid to a cs grid; ``active_cs``: f32[B, 1, bs, bs*bs] 0/1 freeze
-    mask. Returns (P2, resnorm)."""
+    mask; ``fold`` as in `euler_rhs_cs`, for both stages. Returns (P2,
+    resnorm)."""
     R0, dtb = euler_rhs_cs(bt, fluid, Pc, high_order=high_order,
-                           with_dt=True)
+                           with_dt=True, fold=fold)
     P1 = apply_bcs_cs(rk2_update(fluid, Pc, R0, None, dtb, active_cs, cfl))
-    R1 = euler_rhs_cs(bt, fluid, P1, high_order=high_order)
+    R1 = euler_rhs_cs(bt, fluid, P1, high_order=high_order, fold=fold)
     P2 = apply_bcs_cs(rk2_update(fluid, Pc, R0, R1, dtb, active_cs, cfl))
     resnorm = R0[:, 0].abs().max()
     return P2, resnorm

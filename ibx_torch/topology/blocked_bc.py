@@ -1,14 +1,15 @@
-"""Ghost-cell boundary conditions on the channel-split block state.
+"""Ghost-cell boundary conditions on the block state.
 
-`GhostBC.apply_cs` has the semantics of the JAX package's
-`FusedBoundary.__call__` (`ibx/topology/domain.py`), applied on the
-``[B, C, bs, bs*bs]`` state the march keeps: gather the image-point
-stencils, apply the per-family BC callbacks, blend with eta, guard, and
-write the ghosts back once. The ghost set comes from `_collect_families`,
-a verbatim numpy copy of the JAX package's function. The TPU write-back
-machinery of `ibx/topology/blocked_bc.py` (16-slot tiles, phase views,
-union buffer, dense planes) exists for the TPU's scatter cost and is not
-ported: here the write-back is one `index_put_`.
+`GhostBC.apply_cs` and `GhostBC.apply_grid` have the semantics of the JAX
+package's `FusedBoundary.__call__` (`ibx/topology/domain.py`), which
+`BlockedBC.cs` and `BlockedBC.__call__` apply on the channel-split
+``[B, C, bs, bs*bs]`` and the cell-major ``[B, bs, bs, bs, C]`` state:
+gather the image-point stencils, apply the per-family BC callbacks, blend
+with eta, guard, and write the ghosts back once. The ghost set comes from
+`_collect_families`, a verbatim numpy copy of the JAX package's function.
+The TPU write-back machinery of `ibx/topology/blocked_bc.py` (16-slot
+tiles, phase views, union buffer, dense planes) exists for the TPU's
+scatter cost and is not ported: here the write-back is one `index_put_`.
 """
 
 from __future__ import annotations
@@ -104,6 +105,22 @@ class GhostBC:
             family=idx(fams["family"]), names=tuple(names),
         )
 
+    def _ghost_values(self, read, fns: Dict[str, Callable],
+                      guard: Optional[Callable]):
+        """Blended, guarded ghost rows [G, C]; ``read(b, w)`` gathers the
+        cells (b, w) as rows [G, C]."""
+        Pi = None
+        for k in range(self.w.shape[1]):
+            t = read(self.src_b[:, k], self.src_w[:, k]) * self.w[:, k:k + 1]
+            Pi = t if Pi is None else Pi + t
+        r = None
+        for i, name in enumerate(self.names):
+            ri = fns[name](Pi, self.normals)
+            r = ri if r is None else torch.where(
+                (self.family == i)[:, None], ri, r)
+        g = self.eta * Pi + (1.0 - self.eta) * r
+        return g if guard is None else guard(g)
+
     def apply_cs(self, Pc, fns: Dict[str, Callable], *,
                  guard: Optional[Callable] = None):
         """Apply all families' BCs to the channel-split state ``Pc``
@@ -112,18 +129,15 @@ class GhostBC:
         ghost rows. Every read happens before the one write."""
         B, C = Pc.shape[:2]
         view = Pc.view(B, C, -1)
-        Pi = None
-        for k in range(self.w.shape[1]):
-            t = view[self.src_b[:, k], :, self.src_w[:, k]] \
-                * self.w[:, k:k + 1]
-            Pi = t if Pi is None else Pi + t
-        r = None
-        for i, name in enumerate(self.names):
-            ri = fns[name](Pi, self.normals)
-            r = ri if r is None else torch.where(
-                (self.family == i)[:, None], ri, r)
-        g = self.eta * Pi + (1.0 - self.eta) * r
-        if guard is not None:
-            g = guard(g)
-        view[self.ghost_b, :, self.ghost_w] = g
+        view[self.ghost_b, :, self.ghost_w] = self._ghost_values(
+            lambda b, w: view[b, :, w], fns, guard)
         return Pc
+
+    def apply_grid(self, P3, fns: Dict[str, Callable], *,
+                   guard: Optional[Callable] = None):
+        """`apply_cs` on the cell-major state ``P3`` ``[B, bs, bs, bs, C]``
+        (contiguous), through its ``[B, bs^3, C]`` view, IN PLACE."""
+        view = P3.view(P3.shape[0], -1, P3.shape[-1])
+        view[self.ghost_b, self.ghost_w] = self._ghost_values(
+            lambda b, w: view[b, w], fns, guard)
+        return P3

@@ -34,7 +34,10 @@ class BlockTables:
       cs_fine (coarse side: coarse block, its 2^(nd-1) fine neighbors).
     Kernel tables: meta f32[B, 16] = h_d (3), edge_valid[d][s] (6),
       bnd[d][s] (6), pad; nbr_table int32[B, 8] = nbr[d][s] (x0 x1 y0 y1
-      z0 z1), pad.
+      z0 z1), pad; fold_rows int32[B, 6]: at 2d + s, the row of block b in
+      the (d, s)-ordered concatenation of the interface rows
+      cat(fs_block[d][s], cs_block[d][s]), or -1 (the pass-B fold's row
+      index, `kernels.euler_pass_b`).
     """
 
     nbr: Tuple
@@ -48,6 +51,7 @@ class BlockTables:
     cs_fine: Tuple
     meta: torch.Tensor
     nbr_table: torch.Tensor
+    fold_rows: torch.Tensor
     n_blocks: int
     block_size: int
     nd: int
@@ -79,11 +83,18 @@ class BlockTables:
         meta = np.zeros((B, 16), np.float32)
         meta[:, 0:3] = h
         nbr_table = np.zeros((B, 8), np.int32)
+        fold_rows = np.full((B, 6), -1, np.int32)
+        n_rows = 0
         for d in range(nd):
             for s in range(2):
                 meta[:, 3 + 2 * d + s] = f["edge_valid"][d][s]
                 meta[:, 9 + 2 * d + s] = f["bnd"][d][s]
                 nbr_table[:, 2 * d + s] = f["nbr"][d][s]
+                ifc = np.concatenate([np.asarray(f["fs_block"][d][s]),
+                                      np.asarray(f["cs_block"][d][s])])
+                fold_rows[ifc.astype(np.int64), 2 * d + s] = \
+                    n_rows + np.arange(ifc.shape[0], dtype=np.int32)
+                n_rows += ifc.shape[0]
         return cls(
             nbr=per_side("nbr", idx),
             bnd=per_side("bnd", f32),
@@ -96,6 +107,7 @@ class BlockTables:
             cs_fine=per_side("cs_fine", idx),
             meta=f32(meta),
             nbr_table=torch.as_tensor(nbr_table, device=device),
+            fold_rows=torch.as_tensor(fold_rows, device=device),
             n_blocks=B, block_size=bs, nd=nd, n_cells=int(f["n_cells"]),
         )
 

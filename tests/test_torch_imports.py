@@ -63,5 +63,9 @@ def test_cpu_tensors_launch_nothing():
     K.rk2_update(fl, P, R, R, one * 1e4, one, 0.5)
     du, _ = K.euler_pass_a(fl, P, meta, nbr, with_dt=True)
     K.euler_pass_b(fl, P, du, one * 0.5, meta, nbr, high_order=True)
+    rows = torch.arange(B * 6, dtype=torch.int32).view(B, 6)
+    vals = torch.ones((B * 6, 5, bs * bs))
+    K.euler_pass_b(fl, P, du, one * 0.5, meta, nbr, high_order=True,
+                   cols6=(rows, vals))
     assert K.launches == {"rk2_update": 0, "euler_pass_a": 0,
-                          "euler_pass_b": 0}
+                          "euler_pass_b": 0, "euler_pass_b_fold": 0}

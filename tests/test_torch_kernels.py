@@ -114,3 +114,59 @@ def test_euler_pass_b_ref_matches_pallas(setup, high_order):
     out = K.euler_pass_b(make_fluid(), t(Pc), t(du), t(nu), tb.meta,
                          tb.nbr_table, high_order=high_order)
     assert chan_err(ref, out) < 1e-4, chan_err(ref, out)
+
+
+@pytest.mark.parametrize("high_order", [True, False])
+def test_euler_pass_b_fold_ref_matches_pallas(setup, high_order):
+    """The `have_cols` fold of pass B: placed random 2:1 gradient
+    corrections on every block and side, so that own edges, edges read by
+    interior neighbors, mirrored bnd cells and neighbor blocks' used edges
+    all carry one. The port takes them as compact rows (one per block and
+    side); R to 1e-4 per channel, the unfolded pass B's tolerance."""
+    bt, tb, Pc = setup
+    B, _, bs, bs2 = Pc.shape
+    du, _ = pr.run_kernel_a(bt, jx_make_fluid(), Pc, with_dt=False)
+    du = np.asarray(du)
+    rng = np.random.default_rng(9)
+    nu = (10.0 ** rng.uniform(-7, 0, (B, 1, bs, bs2))).astype(np.float32)
+    scale = np.abs(du).reshape(B, 3, 5, -1).max(axis=(0, 3))   # [d, c]
+    cols6 = []
+    for d in range(3):
+        shp = (B, 5, 1, bs2) if d == 2 else (B, 5, bs, bs)
+        for _ in range(2):
+            c = rng.standard_normal(shp) * 0.1 * scale[d][None, :, None, None]
+            cols6.append(c.astype(np.float32))
+    ref = pr.run_kernel_b(bt, jx_make_fluid(), Pc, du, nu,
+                          high_order=high_order, cols6=cols6)
+    rows = (np.arange(B)[:, None] + B * np.arange(6)[None, :]).astype(np.int32)
+    vals = np.concatenate([c.reshape(B, 5, bs2) for c in cols6])
+    out = K.euler_pass_b(make_fluid(), t(Pc), t(du), t(nu), tb.meta,
+                         tb.nbr_table, high_order=high_order,
+                         cols6=(torch.as_tensor(rows), t(vals)))
+    assert chan_err(ref, out) < 1e-4, chan_err(ref, out)
+    plain = K.euler_pass_b(make_fluid(), t(Pc), t(du), t(nu), tb.meta,
+                           tb.nbr_table, high_order=high_order)
+    assert chan_err(ref, plain) > 1e-3     # the corrections matter
+
+
+def test_fold_rows_match_placement_and_skip_dense_faces(sphere):  # noqa: F811
+    """`BlockTables.fold_rows` numbers each (d, s) interface row as the JAX
+    package places it (`ifc_inv`), and no block has a correction on an
+    edge that a same-size dense neighbor reads: the neighbor-gathered
+    operands of the TPU fold are zero on the sphere's dense faces."""
+    dom, bt = sphere
+    tb, _ = port_tables(dom, bt)
+    rows = tb.fold_rows.numpy()
+    off = 0
+    for d in range(3):
+        for s in range(2):
+            V = int(bt.fs_block[d][s].shape[0] + bt.cs_block[d][s].shape[0])
+            inv = np.asarray(bt.ifc_inv[d][s])
+            np.testing.assert_array_equal(
+                rows[:, 2 * d + s], np.where(inv < V, inv + off, -1))
+            off += V
+            dense = ((np.asarray(bt.edge_valid[d][s]) > 0)
+                     & (np.asarray(bt.bnd[d][s]) == 0))
+            nb = np.asarray(bt.nbr[d][s])[dense]
+            assert dense.sum() > 0 and (rows[nb, 2 * d + 1 - s] == -1).all()
+    assert off == (rows >= 0).sum() > 0

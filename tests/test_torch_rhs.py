@@ -45,3 +45,38 @@ def test_euler_rhs_cs_matches_ibx(setup, with_dt, high_order):
     if with_dt:
         np.testing.assert_allclose(out[1].numpy(), np.asarray(ref[1]),
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_dt", [True, False])
+def test_euler_rhs_cs_fold_matches_ibx(setup, with_dt, monkeypatch):
+    """The fold path: R to 2e-4 per channel against the JAX package's
+    `euler_rhs_cs` with IBX_CS_FOLD=1; the folded port R equals the
+    pre-added port R to 1e-6 per channel (both add the same float32
+    correction once, so they agree bitwise)."""
+    bt, tb, Pc = setup
+    monkeypatch.setenv("IBX_CS_FOLD", "1")
+    ref = pr.euler_rhs_cs(bt, jx_make_fluid(), Pc, with_dt=with_dt)
+    out = euler_rhs_cs(tb, make_fluid(), t(Pc), with_dt=with_dt, fold=True)
+    pre = euler_rhs_cs(tb, make_fluid(), t(Pc), with_dt=with_dt)
+    if with_dt:
+        assert ref[2] is None
+        np.testing.assert_allclose(out[1].numpy(), np.asarray(ref[1]),
+                                   rtol=1e-5)
+        ref, out, pre = ref[0], out[0], pre[0]
+    assert chan_err(ref, out, floor=1e-3) < 2e-4, chan_err(ref, out, 1, 1e-3)
+    assert chan_err(pre, out) < 1e-6, chan_err(pre, out)
+
+
+def test_euler_rhs_cs_with_frozen_matches_ibx(setup, monkeypatch):
+    """`with_frozen` hands out the corrected (du_cs, nu_cs), to 1e-4 per
+    channel, and turns the fold off, as in the JAX package."""
+    bt, tb, Pc = setup
+    monkeypatch.setenv("IBX_CS_FOLD", "1")
+    R_ref, dtb_ref, (du_ref, nu_ref) = pr.euler_rhs_cs(
+        bt, jx_make_fluid(), Pc, with_dt=True, with_frozen=True)
+    R, dtb, (du, nu) = euler_rhs_cs(tb, make_fluid(), t(Pc), with_dt=True,
+                                    with_frozen=True, fold=True)
+    assert chan_err(R_ref, R, floor=1e-3) < 2e-4, chan_err(R_ref, R, 1, 1e-3)
+    np.testing.assert_allclose(dtb.numpy(), np.asarray(dtb_ref), rtol=1e-5)
+    assert chan_err(du_ref, du) < 1e-4, chan_err(du_ref, du)
+    assert chan_err(nu_ref, nu) < 1e-4, chan_err(nu_ref, nu)
