@@ -7,10 +7,12 @@ target).
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels of ibx_torch/csrc with nvcc;
-  3. kernel parity: each kernel (pass B in both variants, without and with
-     the 2:1 fold) against its plain PyTorch version on the same CUDA
-     tensors, on the bs=4 sphere (a smooth perturbation of the flow) and
-     on the full bs=16 sphere tables; and the folded `euler_rhs_cs`
+  3. kernel parity: each kernel (pass A with and without dt, pass B in
+     both variants, without and with the 2:1 fold, both `high_order`)
+     against its plain PyTorch version on the same CUDA tensors, on the
+     bs=4 sphere (a smooth perturbation of the flow), the bs=8 sphere
+     (wall_h=0.125) and the full bs=16 sphere tables, each with 2:1
+     interfaces on every side of every dim; and the folded `euler_rhs_cs`
      against the pre-added one on the same state;
   4. whole-step parity: one RK2 step of the bs=4 sphere on the card
      (kernels) against the same step on the CPU (plain versions): the
@@ -25,7 +27,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      twice, pass B once in each variant and the update kernel never;
   7. per-kernel times at the main path's shapes (CUDA events over 20
      launches) beside the plain version's time and the kernel's bound,
-     and a breakdown of one step of each march;
+     each kernel's registers, spills and shared memory (ptxas's build log
+     and the launch's dynamic size), and a breakdown of one step of each
+     march;
 then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -36,6 +40,7 @@ available or when the ibx_torch package is not beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -64,12 +69,17 @@ RES_TOL = 1e-4           # resnorm, relative
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
-# per dim: pass A 80 (+26 for the dt bound); pass B two faces of 281
-# (MUSCL and blend 37 a channel, HLL sides 44, flux 50) plus 25 to
-# mask and accumulate
+# per dim: pass A 80 (+26 for the dt bound); pass B one face of 281 a cell
+# and the block's far edge face, 281/bs (MUSCL and blend 37 a channel, HLL
+# sides 44, flux 50: each face counted once, the work and not one way of
+# doing it), plus 25 to mask and accumulate
 # (the fold adds one add a corrected gradient load, a few thousand a block)
 FLOPS_PER_CELL = {"rk2_update": 62, "euler_pass_a_dt": 3 * 106,
-                  "euler_pass_a": 3 * 80, "euler_pass_b": 3 * (2 * 281 + 25)}
+                  "euler_pass_a": 3 * 80}
+
+
+def pass_b_flops(bs):
+    return 3 * (281 + 281 / bs + 25)
 
 
 def log(*a):
@@ -155,15 +165,21 @@ def kernel_parity(case, Pc, label):
               TOL["aux"])
         if with_dt:
             errs["euler_pass_a"] = max(max_abs(du_r, du), max_abs(aux_r, aux))
+    # pass B under a sensor of 10^U(-7, 0) (as tests/test_torch_kernels.py):
+    # the flow's own sensor is 1 on most faces, and the JST blend then
+    # hides the high-order face value that `high_order` switches
+    rng = np.random.default_rng(7)
+    nu = torch.as_tensor((10.0 ** rng.uniform(-7, 0, tuple(x["nu"].shape)))
+                         .astype(np.float32), device=Pc.device)
     for ho in (True, False):
-        R = K.euler_pass_b(fl, Pc, x["du"], x["nu"], bt.meta, bt.nbr_table,
+        R = K.euler_pass_b(fl, Pc, x["du"], nu, bt.meta, bt.nbr_table,
                            high_order=ho)
-        R_r = K.euler_pass_b_ref(fl, Pc, x["du"], x["nu"], bt.meta,
+        R_r = K.euler_pass_b_ref(fl, Pc, x["du"], nu, bt.meta,
                                  bt.nbr_table, high_order=ho)
         check(f"euler_pass_b R (high_order={ho})", chan_err(R_r, R), TOL["R"])
-        Rf = K.euler_pass_b(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
+        Rf = K.euler_pass_b(fl, Pc, x["du_f"], nu, bt.meta,
                             bt.nbr_table, high_order=ho, cols6=x["cols6"])
-        Rf_r = K.euler_pass_b_ref(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
+        Rf_r = K.euler_pass_b_ref(fl, Pc, x["du_f"], nu, bt.meta,
                                   bt.nbr_table, high_order=ho,
                                   cols6=x["cols6"])
         check(f"euler_pass_b_fold R (high_order={ho}, "
@@ -219,6 +235,43 @@ def bound(n_cells, channels, flops_per_cell, n_blocks, extra_bytes=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_resources():
+    """Per kernel instantiation (name<template args>): registers, spill
+    store and load bytes and static shared memory, from ptxas's lines in
+    the build log."""
+    from ibx_torch.ops import kernels as K
+
+    res, name = {}, None
+    for line in K.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"((?:euler_pass_[ab]|rk2_update)_kernel)"
+                          r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
+            args = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
+            name = k.group(1) + ("<" + ", ".join(
+                v if t == "i" else ("true" if v == "1" else "false")
+                for t, v in args) + ">" if args else "")
+            res[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            res[name]["spill"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            res[name]["static_smem"] = int(s.group(1)) if s else 0
+    return res
+
+
+def interface_sides(bt):
+    """Interface rows per (d, s) side: the 2:1 fold's row index counts."""
+    return [int(n) for n in (bt.fold_rows >= 0).sum(dim=0).tolist()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -252,10 +305,18 @@ def main() -> int:
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # 3. kernel parity, bs=4 sphere
+    # 3. kernel parity, bs=4 and bs=8 spheres
     case4 = build_sphere3d(wall_h=0.25, block_size=4, device=dev)
     P4 = perturbed(case4)
-    kernel_parity(case4, case4.to_cs(P4), "bs=4 sphere")
+    case8 = build_sphere3d(wall_h=0.125, block_size=8, device=dev)
+    for c, label in ((case4, "bs=4 sphere, wall_h=0.25"),
+                     (case8, "bs=8 sphere, wall_h=0.125")):
+        sides = interface_sides(c.bt)
+        log(f"[parity] {label}: {c.dom.ncells} cells, 2:1 interface rows "
+            f"per (d, s) side {sides}")
+        assert min(sides) > 0, sides
+        kernel_parity(c, c.to_cs(perturbed(c)), label)
+    del case8
 
     # main-path case (its numbers are printed in phase 5)
     K.reset_launches()
@@ -365,7 +426,7 @@ def main() -> int:
                                    bt.nbr_table, high_order=True),
             lambda: K.euler_pass_b_ref(fl, Pc, x["du"], x["nu"], bt.meta,
                                        bt.nbr_table, high_order=True),
-            26, FLOPS_PER_CELL["euler_pass_b"]),
+            26, pass_b_flops(bt.block_size)),
         "euler_pass_b_fold": (
             "high_order",
             lambda: K.euler_pass_b(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
@@ -374,7 +435,7 @@ def main() -> int:
             lambda: K.euler_pass_b_ref(fl, Pc, x["du_f"], x["nu_f"], bt.meta,
                                        bt.nbr_table, high_order=True,
                                        cols6=x["cols6"]),
-            26, FLOPS_PER_CELL["euler_pass_b"]),
+            26, pass_b_flops(bt.block_size)),
     }
     # the fold also reads its compact correction rows and row index
     extra = {"euler_pass_b_fold": 4 * (x["cols6"][0].numel()
@@ -398,6 +459,23 @@ def main() -> int:
                 "euler_pass_a": "ibx/ops/pallas_rhs.py:420",
                 "euler_pass_b": "ibx/ops/pallas_rhs.py:470",
                 "euler_pass_b_fold": "ibx/ops/pallas_rhs.py:470"}
+    res = kernel_resources()
+    lib = K.build()
+    lbs = bt.block_size.bit_length() - 1
+    dyn = {"euler_pass_a": lib.ibx_euler_pass_a_smem(lbs, 1),
+           "euler_pass_b": lib.ibx_euler_pass_b_smem(lbs, 0),
+           "euler_pass_b_fold": lib.ibx_euler_pass_b_smem(lbs, 1),
+           "rk2_update": 0}
+    inst = {"euler_pass_a": f"euler_pass_a_kernel<{bt.block_size}, true>",
+            "euler_pass_b": f"euler_pass_b_kernel<{bt.block_size}, false>",
+            "euler_pass_b_fold":
+                f"euler_pass_b_kernel<{bt.block_size}, true>",
+            "rk2_update": "rk2_update_kernel"}
+    log("[ptxas] registers, spill stores/loads (bytes) and static shared "
+        "memory of every kernel instantiation (build log):")
+    for k, v in sorted(res.items()):
+        log(f"  {k}: {v.get('registers')} registers, spills "
+            f"{v.get('spill')}, {v.get('static_smem')} bytes static smem")
     rows = []
     log(f"[kernels] {n_cells} cells, CUDA events over 20 launches; bounds at "
         f"{PEAK_BYTES_S / 1e12:g} TB/s and {PEAK_F32_FLOP_S / 1e12:g} "
@@ -406,17 +484,21 @@ def main() -> int:
         ms = time_ms(fk)
         plain = time_ms(fr, reps=5)
         b_ms, b_by = bound(n_cells, ch, fpc, n_blocks, extra.get(name, 0))
+        r = res.get(inst[name], {})
         log(f"  {name} ({var}): {ms:.4f} ms, plain {plain:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}, {ch} channels + "
             f"{extra.get(name, 0)} bytes), "
             f"{b_ms / ms:.1%} of bound, library none, "
-            f"launches on its path {launches[name]}")
+            f"launches on its path {launches[name]}; {inst[name]}: "
+            f"{r.get('registers')} registers, {r.get('static_smem')} + "
+            f"{dyn[name]} bytes smem (static + dynamic)")
         rows.append(dict(name=name, route="cuda", source=source[name],
                          replaces=replaces[name],
                          launches=launches[name],
                          max_abs_err=errs16[name], ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         variant=var))
+                         variant=var, registers=r.get("registers"),
+                         smem_bytes=r.get("static_smem", 0) + dyn[name]))
     for label, (fk, ch, fpc) in others.items():
         ms = time_ms(fk)
         b_ms, b_by = bound(n_cells, ch, fpc, n_blocks)

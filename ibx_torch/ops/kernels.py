@@ -17,7 +17,9 @@ one shared library under ``ibx_torch/_build/`` and called through
 Each wrapper takes its plain version (``*_ref``, the same expressions
 written with tensor ops) only for tensors on the CPU; for CUDA tensors it
 launches the kernel, adds one to ``launches[name]`` and raises if the
-launch fails. Nothing falls back.
+launch fails. Nothing falls back. Passes A and B take the block sizes in
+``STENCIL_BLOCK_SIZES`` (one CUDA block per mesh block, one thread per
+(y, x) column) and raise ValueError on any other, on every device.
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ SOURCES = ("rk2_update.cu", "euler_pass_a.cu", "euler_pass_b.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+# block sizes of the pass-A and pass-B kernels: bs^2 threads a CUDA block
+# (16 to 256); bs = 2 would leave 4 threads a block, bs = 32 ask for 1024
+# threads and four times the shared-memory tile
+STENCIL_BLOCK_SIZES = (4, 8, 16)
+
 launches: Dict[str, int] = {"rk2_update": 0, "euler_pass_a": 0,
                             "euler_pass_b": 0, "euler_pass_b_fold": 0}
 
@@ -61,18 +68,28 @@ def _nvcc() -> str:
     return cand
 
 
+def _library_path() -> Path:
+    files = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        digest.update(f.name.encode() + f.read_bytes())
+    return BUILD_DIR / f"libibx_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """What ``ptxas -v`` said about each kernel when the library was built
+    (registers, spills, static shared memory), kept beside it."""
+    return _library_path().with_suffix(".log").read_text()
+
+
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; cached per process
     and, on disk, by a hash of the sources and flags."""
     global _lib
     if _lib is not None:
         return _lib
-    files = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in files:
-        digest.update(f.name.encode() + f.read_bytes())
-    tag = digest.hexdigest()[:16]
-    so = BUILD_DIR / f"libibx_kernels_{tag}.so"
+    so = _library_path()
+    tag = so.stem.rsplit("_", 1)[1]
     if not so.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -92,6 +109,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                                    f"{r.stdout}\n{r.stderr}")
             if verbose:
                 print(r.stderr.strip(), flush=True)
+        so.with_suffix(".log").write_text(
+            "\n".join(r.stderr for _, r in results))
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]
         r = subprocess.run(cmd, capture_output=True, text=True)
@@ -106,8 +125,11 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.ibx_euler_pass_a.argtypes = [p, p, p, p, p, i, i, i, f, p]
     lib.ibx_euler_pass_b.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f,
                                      f, p]
+    lib.ibx_euler_pass_a_smem.argtypes = [i, i]
+    lib.ibx_euler_pass_b_smem.argtypes = [i, i]
     for fn in (lib.ibx_rk2_update, lib.ibx_euler_pass_a,
-               lib.ibx_euler_pass_b):
+               lib.ibx_euler_pass_b, lib.ibx_euler_pass_a_smem,
+               lib.ibx_euler_pass_b_smem):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -136,6 +158,14 @@ def _geometry(Pc: torch.Tensor):
     B, _, bs, _ = Pc.shape
     if bs < 2 or bs & (bs - 1):
         raise ValueError(f"block size must be a power of two, got {bs}")
+    return B, bs
+
+
+def _stencil_geometry(Pc: torch.Tensor):
+    B, bs = _geometry(Pc)
+    if bs not in STENCIL_BLOCK_SIZES:
+        raise ValueError(f"passes A and B take block sizes "
+                         f"{STENCIL_BLOCK_SIZES}, got {bs}")
     return B, bs
 
 
@@ -233,10 +263,10 @@ def _bview(v):
     return v.view((-1, 1, 1, 1, 1))
 
 
-def _neighbor(X5, meta, nbr_table, d: int, s: int):
-    """Side-s neighbor values along dim d of every cell: the shifted own
-    block inside, the neighbor block's opposite edge plane at the block
-    edge, the own edge plane on one-sided boundary sides."""
+def _halo(X5, meta, nbr_table, d: int, s: int):
+    """The side-s halo plane along dim d of every block: the neighbor
+    block's opposite edge plane, or the own edge plane on a one-sided
+    boundary side."""
     ax = 4 - d
     bs = X5.shape[ax]
     first = X5.narrow(ax, 0, 1)
@@ -244,20 +274,38 @@ def _neighbor(X5, meta, nbr_table, d: int, s: int):
     bnd = _bview(meta[:, 9 + 2 * d + s])
     nb = nbr_table[:, 2 * d + s].long()
     if s == 0:
-        halo = torch.where(bnd > 0, first, last[nb])
-        return torch.cat([halo, X5.narrow(ax, 0, bs - 1)], dim=ax)
-    halo = torch.where(bnd > 0, last, first[nb])
-    return torch.cat([X5.narrow(ax, 1, bs - 1), halo], dim=ax)
+        return torch.where(bnd > 0, first, last[nb])
+    return torch.where(bnd > 0, last, first[nb])
 
 
-def _edge_mask(meta, d: int, s: int, bs: int):
-    """1 everywhere except edge_valid[d][s] on the side-s edge plane."""
+def _faces(X5, meta, nbr_table, d: int):
+    """The minus and plus cells of the bs+1 faces along dim d of every
+    block (face k between cells k-1 and k, the halo planes at the ends):
+    two views of X5 extended by its halo planes."""
+    ax = 4 - d
+    bs = X5.shape[ax]
+    ext = torch.cat([_halo(X5, meta, nbr_table, d, 0), X5,
+                     _halo(X5, meta, nbr_table, d, 1)], dim=ax)
+    return ext.narrow(ax, 0, bs + 1), ext.narrow(ax, 1, bs + 1)
+
+
+def _face_mask(meta, d: int, bs: int):
+    """The bs+1 faces' masks along dim d: edge_valid[d][0] on face 0,
+    edge_valid[d][1] on face bs, 1 between."""
     B = meta.shape[0]
-    m = torch.ones((B, bs), dtype=meta.dtype, device=meta.device)
-    m[:, bs - 1 if s else 0] = meta[:, 3 + 2 * d + s]
+    m = torch.ones((B, bs + 1), dtype=meta.dtype, device=meta.device)
+    m[:, 0] = meta[:, 3 + 2 * d]
+    m[:, bs] = meta[:, 4 + 2 * d]
     shape = [B, 1, 1, 1, 1]
-    shape[4 - d] = bs
+    shape[4 - d] = bs + 1
     return m.view(shape)
+
+
+def _minus_plus(F, d: int):
+    """Each cell's minus and plus face values from the bs+1 faces."""
+    ax = 4 - d
+    bs = F.shape[ax] - 1
+    return F.narrow(ax, 0, bs), F.narrow(ax, 1, bs)
 
 
 # ---------------------------------------------------------------------------
@@ -265,34 +313,28 @@ def _edge_mask(meta, d: int, s: int, bs: int):
 # ---------------------------------------------------------------------------
 
 def euler_pass_a_ref(fluid: Fluid, Pc, meta, nbr_table, *, with_dt: bool):
-    """Plain version of `euler_pass_a`: the expressions of `_kernel_a`."""
+    """Plain version of `euler_pass_a`: the expressions of `_kernel_a`,
+    each face average taken once (bs+1 faces a dim) and differenced."""
     B, bs = _geometry(Pc)
     P = Pc.view(B, 5, bs, bs, bs)
 
     def sound(T):
         return torch.sqrt(fluid.gR * T.clamp(min=10.0))
 
-    a = sound(P[:, 1:2])
     du, G, U, sf = [], [], [], []
     for d in range(3):
         h = _bview(meta[:, d])
-        ml = _edge_mask(meta, d, 0, bs)
-        mr = _edge_mask(meta, d, 1, bs)
-        Pm = _neighbor(P, meta, nbr_table, d, 0)
-        Pp = _neighbor(P, meta, nbr_table, d, 1)
-        Pf_m = (Pm * h + P * h) / (h + h) * ml
-        Pf_p = (P * h + Pp * h) / (h + h) * mr
-        fd_m = (P[:, 0:1] - Pm[:, 0:1]) * ml
-        fd_p = (Pp[:, 0:1] - P[:, 0:1]) * mr
+        m = _face_mask(meta, d, bs)
+        Po, Pn = _faces(P, meta, nbr_table, d)
+        Pf_m, Pf_p = _minus_plus((Po * h + Pn * h) / (h + h) * m, d)
+        fd_m, fd_p = _minus_plus((Pn[:, 0:1] - Po[:, 0:1]) * m, d)
         du.append((Pf_p - Pf_m) / h)
         G.append((fd_p - fd_m) / h)
         U.append((fd_p.abs() + fd_m.abs()) / h)
         if with_dt:
-            S = P[:, 2 + d:3 + d].abs() + a
-            Sm = Pm[:, 2 + d:3 + d].abs() + sound(Pm[:, 1:2])
-            Sp = Pp[:, 2 + d:3 + d].abs() + sound(Pp[:, 1:2])
-            sf_m = (Sm * h + S * h) / (h + h) * ml
-            sf_p = (S * h + Sp * h) / (h + h) * mr
+            So = Po[:, 2 + d:3 + d].abs() + sound(Po[:, 1:2])
+            Sn = Pn[:, 2 + d:3 + d].abs() + sound(Pn[:, 1:2])
+            sf_m, sf_p = _minus_plus((So * h + Sn * h) / (h + h) * m, d)
             sf.append((sf_p + sf_m) / h)
     aux = torch.cat(G + U + sf, dim=1)
     return (torch.cat(du, dim=1).reshape(B, 15, bs, bs * bs),
@@ -303,7 +345,7 @@ def euler_pass_a(fluid: Fluid, Pc, meta, nbr_table, *, with_dt: bool):
     """RHS pass A: returns ``du [B, 15, bs, bs*bs]`` (Green-Gauss
     gradients, dim-major) and ``aux [B, 9 | 6, bs, bs*bs]`` (G per dim, U
     per dim, and with ``with_dt`` the wave-speed sums)."""
-    B, bs = _geometry(Pc)
+    B, bs = _stencil_geometry(Pc)
     dev = Pc.device
     _check("P", Pc, (B, 5, bs, bs * bs), dev)
     _check_tables(meta, nbr_table, B, dev)
@@ -396,9 +438,9 @@ def fold_du_ref(du, cols6):
 
 def euler_pass_b_ref(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
                      high_order: bool, cols6=None):
-    """Plain version of `euler_pass_b`: the expressions of `_kernel_b`
-    (every face evaluated from both of its cells); with ``cols6`` the
-    corrections are added to ``du`` first (`fold_du_ref`)."""
+    """Plain version of `euler_pass_b`: the expressions of `_kernel_b`,
+    each face evaluated once (bs+1 faces a dim) and differenced; with
+    ``cols6`` the corrections are added to ``du`` first (`fold_du_ref`)."""
     B, bs = _geometry(Pc)
     if cols6 is not None:
         du = fold_du_ref(du, cols6)
@@ -407,12 +449,9 @@ def euler_pass_b_ref(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
         W = torch.cat([Pc, du[:, 5 * d:5 * d + 5], nu], dim=1).view(
             B, 11, bs, bs, bs)
         h = _bview(meta[:, d])
-        Wm = _neighbor(W, meta, nbr_table, d, 0)
-        Wp = _neighbor(W, meta, nbr_table, d, 1)
-        Fm = _face_b(fluid, high_order, d, h, Wm, W) \
-            * _edge_mask(meta, d, 0, bs)
-        Fp = _face_b(fluid, high_order, d, h, W, Wp) \
-            * _edge_mask(meta, d, 1, bs)
+        Wo, Wn = _faces(W, meta, nbr_table, d)
+        F = _face_b(fluid, high_order, d, h, Wo, Wn) * _face_mask(meta, d, bs)
+        Fm, Fp = _minus_plus(F, d)
         Rd = (Fp - Fm) / h
         acc = Rd if acc is None else acc + Rd
     return acc.reshape(B, 5, bs, bs * bs)
@@ -430,7 +469,7 @@ def euler_pass_b(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
     correction on side s of dim d at column 2d + s, or -1; a row's lateral
     index is hi-major over the other two dims ((y, x) for d = 2, (z, x) for
     d = 1, (z, y) for d = 0), as in the JAX package's placed operands."""
-    B, bs = _geometry(Pc)
+    B, bs = _stencil_geometry(Pc)
     dev = Pc.device
     _check("P", Pc, (B, 5, bs, bs * bs), dev)
     _check("du", du, (B, 15, bs, bs * bs), dev)

@@ -23,7 +23,8 @@ import torch
 from ..physics.fluid import Fluid, speed_of_sound
 from ..topology.blocks import BlockTables
 from . import block_ops as bo
-from .kernels import euler_pass_a, euler_pass_b, rk2_update
+from .kernels import (STENCIL_BLOCK_SIZES, euler_pass_a, euler_pass_b,
+                      rk2_update)
 
 
 def cs_split(bt: BlockTables, X3):
@@ -106,11 +107,15 @@ def pallas_eligible(bt: BlockTables, *, viscous: bool = False, fix3=None,
                     cut3=None, frozen=None, mu_t3=None) -> bool:
     """Static gate of the kernel route (`ibx/ops/pallas_rhs.py`
     `pallas_eligible`): the 3D Euler configuration without frozen
-    gradients or extra physics. The JAX gate also asks for a block size of
-    8 or 16, the TPU kernels' tilings; the CUDA kernels take any power of
-    two, which `BlockTables.from_numpy` already demands, as it demands that
-    no generic sparse leftover exists."""
-    return (bt.nd == 3 and not viscous and fix3 is None and cut3 is None
+    gradients or extra physics, at a block size the pass-A and pass-B
+    kernels take (`kernels.STENCIL_BLOCK_SIZES`: 4, 8 and 16). The JAX gate
+    asks for 8 or 16, the TPU kernels' tilings; the CUDA kernels run one
+    CUDA block of bs^2 threads per mesh block, so they also take 4 (16
+    threads, the parity fixture's size) but not 2 (4 threads) or 32 (1024
+    threads and four times the shared-memory tile). No generic sparse
+    leftover exists: `BlockTables.from_numpy` rejects it."""
+    return (bt.nd == 3 and bt.block_size in STENCIL_BLOCK_SIZES
+            and not viscous and fix3 is None and cut3 is None
             and frozen is None and mu_t3 is None)
 
 

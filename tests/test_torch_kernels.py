@@ -21,6 +21,7 @@ from ibx.topology.blocked_bc import _collect_families
 
 from ibx_torch.convert import tables_from_numpy
 from ibx_torch.ops import kernels as K
+from ibx_torch.ops.rhs_cs import pallas_eligible
 from ibx_torch.physics.fluid import make_fluid
 
 from test_pallas_rhs import _perturbed, sphere  # noqa: F401
@@ -170,3 +171,39 @@ def test_fold_rows_match_placement_and_skip_dense_faces(sphere):  # noqa: F811
             nb = np.asarray(bt.nbr[d][s])[dense]
             assert dense.sum() > 0 and (rows[nb, 2 * d + 1 - s] == -1).all()
     assert off == (rows >= 0).sum() > 0
+
+
+@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32])
+def test_pallas_eligible_block_sizes(setup, bs):
+    """The kernel route's gate admits the block sizes the pass-A and pass-B
+    kernels take (4, 8, 16; the JAX gate's 8 and 16 among them), and the
+    wrappers hold to the same sizes on every device: a one-block state
+    with mirrored sides runs at an admitted size and raises ValueError at
+    another."""
+    _, tb, _ = setup
+    admitted = bs in (4, 8, 16)
+    assert pallas_eligible(dataclasses.replace(tb, block_size=bs)) is admitted
+    assert pallas_eligible(dataclasses.replace(tb, block_size=bs),
+                           frozen=object()) is False
+    rng = np.random.default_rng(bs)
+    P = np.empty((1, 5, bs, bs * bs), np.float32)
+    P[:, 0] = rng.uniform(9e4, 1.1e5, P[:, 0].shape)
+    P[:, 1] = rng.uniform(280.0, 300.0, P[:, 1].shape)
+    P[:, 2:] = rng.uniform(-50.0, 50.0, P[:, 2:].shape)
+    meta = np.zeros((1, 16), np.float32)
+    meta[0, 0:3] = 0.1
+    meta[0, 3:15] = 1.0                 # edges valid, every side mirrored
+    nbr = torch.zeros((1, 8), dtype=torch.int32)
+    nu = np.full((1, 1, bs, bs * bs), 1e-3, np.float32)
+
+    def run():
+        du, _ = K.euler_pass_a(make_fluid(), t(P), t(meta), nbr,
+                               with_dt=True)
+        return K.euler_pass_b(make_fluid(), t(P), du, t(nu), t(meta), nbr,
+                              high_order=True)
+
+    if admitted:
+        assert bool(torch.isfinite(run()).all())
+    else:
+        with pytest.raises(ValueError, match="block sizes"):
+            run()
