@@ -30,6 +30,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      each kernel's registers, spills and shared memory (ptxas's build log
      and the launch's dynamic size), and a breakdown of one step of each
      march;
+  8. 2D step parity: `build_rae2822(wall_h=8e-2, feature_h=4e-2, cfl=0.7)`
+     on the card and on the CPU, one step from a perturbed state (plain,
+     with `te_fix_radius=0.3`, with `irs_eps=0.5`); the same torch ops run
+     on both devices, and no kernel may be launched;
+  9. 2D main path at full width: `build_rae2822(wall_h=5e-4,
+     feature_h=2.5e-4, cfl=0.7, block_size=16)` on the card (881,152
+     cells), restarted from the converged state of
+     tests/data/rae2822_cp_flagship.npz, 2 warm-up steps, then two windows
+     of 500 steps of `case.march` timed with CUDA events and the host
+     clock; all four kernel counters must stay 0 (the 2D arm has no kernel
+     in either package), Cl must lie in the committed band and the
+     windows' mean wall Cp must reproduce the oracle's phase mean;
+ 10. 2D breakdown: the parts of one step (CUDA events and the host's
+     enqueue time over 20 calls each) and the card's busy share of a
+     5-step window from `torch.profiler`;
 then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -39,6 +54,7 @@ available or when the ibx_torch package is not beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -66,6 +82,18 @@ PEAK_F32_FLOP_S = 67e12
 TOL = {"rk2_update": 1e-6, "aux": 1e-5, "du": 1e-4, "R": 1e-4}
 STEP_TOL = 1e-4          # whole step, card vs CPU, per channel
 RES_TOL = 1e-4           # resnorm, relative
+# 2D flagship march from the committed converged state: Cl band of
+# tests/test_rae2822_regression.py (the 32k-step window study), and the
+# mean |dCp| of two 500-step windows' mean against the oracle's 8-phase
+# mean: measured 4.2e-3 on the H100 (one 500-step window carries about
+# 8.5e-3 of cycle noise by the committed window study); the limit is twice
+# the measurement
+CL_BAND = (0.90, 0.93)
+DCP_TOL = 8.5e-3
+RAE_FLAGSHIP = dict(wall_h=5e-4, feature_h=2.5e-4, cfl=0.7, block_size=16)
+RAE_CELLS = 881_152
+RAE_ORACLE = "tests/data/rae2822_cp_flagship.npz"
+RAE_WINDOW = 500
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
@@ -208,19 +236,28 @@ def kernel_parity(case, Pc, label):
     return errs
 
 
-def time_ms(fn, reps=20):
-    """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after one
-    warm-up call."""
+def time_both(fn, reps=20):
+    """(ms by CUDA events, ms the host took to enqueue) per call of ``fn``
+    over ``reps`` calls after one warm-up call. Where the two agree the
+    host is the limit; where the enqueue is the shorter, the card is."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     e0.record()
     for _ in range(reps):
         fn()
     e1.record()
+    host = time.perf_counter() - t0
     e1.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return e0.elapsed_time(e1) / reps, host / reps * 1e3
+
+
+def time_ms(fn, reps=20):
+    """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after one
+    warm-up call."""
+    return time_both(fn, reps)[0]
 
 
 def bound(n_cells, channels, flops_per_cell, n_blocks, extra_bytes=0):
@@ -267,43 +304,168 @@ def kernel_resources():
     return res
 
 
+def perturbed2d(case, seed=5):
+    """Flat 2D state: the case's initial state with the perturbation of
+    tests/test_block_ops.py plus independent noise in u and v (a transposed
+    edge line would pass a smooth field)."""
+    rng = np.random.default_rng(seed)
+    P = case.P0.detach().cpu().numpy().copy()
+    x, y = case.dom.centers[:, 0], case.dom.centers[:, 1]
+    P[:, 0] *= 1.0 + 0.05 * np.sin(x) * np.cos(y)
+    P[:, 1] *= 1.0 + 0.02 * np.cos(x)
+    P[:, 2] += 20.0 * np.sin(y) + 5.0 * rng.standard_normal(P.shape[0])
+    P[:, 3] += 10.0 * np.cos(x) + 5.0 * rng.standard_normal(P.shape[0])
+    return torch.as_tensor(P.astype(np.float32), device=case.P0.device)
+
+
+def rae2822_phases(root, dev, smi):
+    """Phases 8-10: the 2D arm. It launches no kernel, so it adds no row
+    to the kernels line; its counters are asserted to stay 0."""
+    from ibx_torch.cases import (build_rae2822, force_coefficients,
+                                 wall_cp)
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.block_ops import (euler_rhs_grid, to_blocks)
+    from ibx_torch.physics.fluid import (primitive2state,
+                                         state2primitive_guarded)
+
+    zero = dict.fromkeys(K.launches, 0)
+
+    # 8. 2D step parity, card vs CPU
+    small = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7)
+    for label, kw in (("reference numerics", {}),
+                      ("te_fix_radius=0.3", dict(te_fix_radius=0.3)),
+                      ("irs_eps=0.5", dict(irs_eps=0.5))):
+        cg = build_rae2822(device=dev, **small, **kw)
+        cc = build_rae2822(device="cpu", **small, **kw)
+        P = perturbed2d(cg)
+        K.reset_launches()
+        Pg, rg = cg.step(P)
+        Pc, rc = cc.step(P.cpu())
+        log(f"[step2d] RAE2822 wall_h=8e-2 ({cg.dom.ncells} cells), one "
+            f"step ({label}), card vs CPU")
+        check("state (per channel)", chan_err(Pc, Pg.cpu()), STEP_TOL)
+        check("resnorm (relative)",
+              abs(float(rg) - float(rc)) / abs(float(rc)), RES_TOL)
+        assert dict(K.launches) == zero, K.launches
+    del cg, cc
+
+    # 9. 2D main path at full width
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    case = build_rae2822(**RAE_FLAGSHIP)
+    bt, fl = case.bt, case.fluid
+    n_cells = case.dom.ncells
+    n_ifc = sum(int(bt.fs_block[d][s].shape[0] + bt.cs_block[d][s].shape[0])
+                for d in range(2) for s in range(2))
+    log(f"[main2d] build_rae2822({RAE_FLAGSHIP}): {n_cells} cells, "
+        f"{bt.n_blocks} blocks, "
+        f"{int(case.bc.ghost_b.shape[0])} ghosts (stencil width "
+        f"{case.bc.w.shape[1]}), {n_ifc} 2:1 interface rows, "
+        f"{bt.n_sparse} sparse leftover faces, "
+        f"{case.dom.surfaces['wall'].points.shape[0]} wall points; build "
+        f"{case.build_seconds:.1f} s; Domain stages "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    case.dom.build_timings.items()))
+    assert n_cells == RAE_CELLS, n_cells
+    assert bt.n_sparse == 0 and case.P0.device.type == "cuda"
+    assert bt.meta is None and bt.nbr_table is None
+    ref = np.load(root / RAE_ORACLE)
+    P = case.apply_bcs(torch.as_tensor(ref["P"], device=dev))
+    P = case.march(P, 2)
+    torch.cuda.synchronize()
+    window, cps, ms_w, host_w = RAE_WINDOW, [], [], []
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    K.reset_launches()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        e0.record()
+        P = case.march(P, window)
+        e1.record()
+        e1.synchronize()
+        host_w.append((time.perf_counter() - t0) / window * 1e3)
+        ms_w.append(e0.elapsed_time(e1) / window)
+        cps.append(wall_cp(case, P))
+    launches2d = dict(K.launches)
+    ms_step = sum(ms_w) / 2
+    _, res = case.step(P)
+    finite = bool(torch.isfinite(P).all())
+    cl, cd = force_coefficients(case, P)
+    dcp = float(np.abs(np.stack(cps).mean(axis=0)
+                       - ref["cp_phases"].mean(axis=0)).mean())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[main2d] 2 x {window} steps: {ms_step:.3f} ms/step (CUDA events; "
+        f"windows {ms_w[0]:.3f}, {ms_w[1]:.3f}; host clock "
+        f"{host_w[0]:.3f}, {host_w[1]:.3f}), "
+        f"{n_cells / (ms_step / 1e3):.4e} cell-updates/s, resnorm "
+        f"{float(res):.6e}, finite {finite}, peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+        f"what the earlier phases hold)")
+    log(f"[main2d] Cl {cl:.5f}, Cd {cd:.5f}; mean |dCp| of the two "
+        f"windows' mean vs the oracle's {ref['cp_phases'].shape[0]}-phase "
+        f"mean {dcp:.3e} (tol {DCP_TOL:g}); launches {launches2d}")
+    assert finite, "non-finite 2D state after the march"
+    assert launches2d == zero, launches2d
+    assert CL_BAND[0] < cl < CL_BAND[1], cl
+    assert dcp < DCP_TOL, dcp
+
+    # 10. 2D breakdown
+    P3 = to_blocks(bt, P)
+    R0, dt3, _ = euler_rhs_grid(bt, fl, P3, with_dt=True, cfl=case.cfl)
+    dt = (dt3 * case.active3)[..., None]
+    Q0 = primitive2state(fl, P3)
+    parts = {
+        "euler_rhs_grid with dt":
+            lambda: euler_rhs_grid(bt, fl, P3, with_dt=True, cfl=case.cfl),
+        "euler_rhs_grid without dt": lambda: euler_rhs_grid(bt, fl, P3),
+        "ghost BC (GhostBC.apply_grid, on a clone)":
+            lambda: case.apply_bcs3(P3.clone()),
+        "state clone (subtract from the BC line)": lambda: P3.clone(),
+        "guarded update, stage 1 (primitive2state, Q0 + dt R0, back)":
+            lambda: state2primitive_guarded(
+                fl, primitive2state(fl, P3) + dt * R0),
+        "guarded update, stage 2 (Q0 + dt (R0 + R1) / 2, back)":
+            lambda: state2primitive_guarded(fl, Q0 + dt * (R0 + R0) / 2),
+    }
+    log(f"[breakdown2d] 2D step = {ms_step:.3f} ms; parts, 20 calls each, "
+        f"ms by CUDA events / ms the host took to enqueue them:")
+    for label, fn in parts.items():
+        ev, host = time_both(fn)
+        log(f"  {label}: {ev:.4f} / {host:.4f} ms")
+    # the card's busy share: device time of every CUDA kernel and copy in
+    # a 5-step window over the window's wall time
+    n_prof = 5
+    prof_t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        case.march(P, n_prof)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - prof_t0) * 1e3
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    log(f"[breakdown2d] torch.profiler over {n_prof} steps (tracing on): "
+        f"{len(ev)} device activities ({len(ev) / n_prof:.0f} a step), "
+        f"device busy {busy_ms / n_prof:.3f} ms a step of "
+        f"{wall_ms / n_prof:.3f} ms wall a step "
+        f"({busy_ms / wall_ms:.1%} busy); against the untraced step of "
+        f"{ms_step:.3f} ms the card is busy {busy_ms / n_prof / ms_step:.1%}")
+    assert ev and busy_ms > 0, "torch.profiler recorded no device time"
+    log(f"[2d] card: {smi}")
+
+
 def interface_sides(bt):
     """Interface rows per (d, s) side: the 2:1 fold's row index counts."""
     return [int(n) for n in (bt.fold_rows >= 0).sum(dim=0).tolist()]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    root = Path(__file__).resolve().parent
-    if not (root / "ibx_torch" / "csrc").is_dir():
-        print(f"chip_smoke: no ibx_torch package beside {__file__}",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(root))
+def sphere_phases(dev):
+    """Phases 3-7: the 3D sphere marches and their four kernels; returns
+    the rows of the kernels line."""
     from ibx_torch.cases import build_sphere3d
     from ibx_torch.ops import kernels as K
-
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-
-    # 1. device
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    smi = smi.splitlines()[0]
-    log(f"[device] {kind}; count {torch.cuda.device_count()}; "
-        f"nvidia-smi: {smi}; torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
-
-    # 2. build
-    t0 = time.perf_counter()
-    K.build(verbose=True)
-    log(f"[build] kernels built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernel parity, bs=4 and bs=8 spheres
     case4 = build_sphere3d(wall_h=0.25, block_size=4, device=dev)
@@ -543,6 +705,47 @@ def main() -> int:
         f"each:")
     for label, fn in parts.items():
         log(f"  {label}: {time_ms(fn):.4f} ms")
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    if not (root / "ibx_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no ibx_torch package beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    from ibx_torch.ops import kernels as K
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    smi = smi.splitlines()[0]
+    log(f"[device] {kind}; count {torch.cuda.device_count()}; "
+        f"nvidia-smi: {smi}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    K.build(verbose=True)
+    log(f"[build] kernels built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    rows = sphere_phases(dev)
+    # the sphere's tensors are no longer needed: free them before the 2D
+    # phases, so that their peak memory is their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    rae2822_phases(root, dev, smi)
 
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

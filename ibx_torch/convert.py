@@ -5,7 +5,8 @@ the tests hand to both, is the compiled mesh. `tables_from_numpy` takes
 the block tables as numpy arrays (the fields of the JAX package's
 `BlockTables`, or `ibx_torch.topology.blocks.build_block_tables_raw`
 output) and the ghost-family dict of `_collect_families`, and returns the
-port's `BlockTables` and `GhostBC` on ``device``.
+port's `BlockTables` and `GhostBC` on ``device``, for a 2D or a 3D mesh
+(the kernel tables of `BlockTables` exist at nd = 3 only).
 """
 
 from __future__ import annotations

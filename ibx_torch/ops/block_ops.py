@@ -1,13 +1,15 @@
 """Dense block-structured operators on the cell-major block grid
-``[B, bs, bs, bs, C]`` (counterpart of `ibx/ops/block_ops.py` at nd = 3):
-layout reshapes, the minmod limiter, the structured 2:1 interface
-corrections, `face_accumulate` (its default concat formulation), the block
-Euler RHS `euler_rhs_grid` with its kernel route, and the grid marches
-`rk2_step_grid` / `euler_step_grid` with their flat wrappers.
+``[B, bs, ..., bs, C]`` (counterpart of `ibx/ops/block_ops.py`, nd = 2
+and 3): layout reshapes, the minmod limiter, the structured 2:1 interface
+corrections, the generic sparse leftover, `face_accumulate` (its default
+concat formulation), the block Euler RHS `euler_rhs_grid` with the
+``fix3`` robustness blend and, at nd = 3, its kernel route, implicit
+residual smoothing, and the grid marches `rk2_step_grid` /
+`euler_step_grid` with their flat wrappers. At nd = 2 every call takes
+the torch-op body: neither package has a kernel for it.
 
 Not ported yet (ROADMAP queue 1 item 4): the ``IBX_PADDED_FACES``
-formulation, implicit residual smoothing, the ``fix3`` / ``viscous`` /
-``mu_t3`` / ``cut3`` options, the generic sparse leftover and nd = 2."""
+formulation and the ``viscous`` / ``mu_t3`` / ``cut3`` options."""
 
 from __future__ import annotations
 
@@ -25,13 +27,13 @@ _NOT_PORTED = ("not ported to ibx_torch yet (ROADMAP queue 1 item 4)")
 
 
 def to_blocks(bt: BlockTables, u_flat):
-    """[N, ...] flat cell order -> [B, bs, bs, bs, ...] block grid."""
+    """[N, ...] flat cell order -> [B, bs, ..., bs, ...] block grid."""
     return u_flat.reshape(
         (bt.n_blocks,) + (bt.block_size,) * bt.nd + tuple(u_flat.shape[1:]))
 
 
 def to_flat(bt: BlockTables, u3):
-    """[B, bs, bs, bs, ...] -> [N, ...]."""
+    """[B, bs, ..., bs, ...] -> [N, ...]."""
     return u3.reshape((bt.n_cells,) + tuple(u3.shape[1 + bt.nd:]))
 
 
@@ -41,10 +43,21 @@ def minmod(u1, u2):
         torch.sign(u1) + torch.sign(u2)) / 2
 
 
-def _expand_coarse(col, off, bs: int):
-    """Coarse edge plane col [V, bs, bs, C] (hi-major) -> the values seen
-    by the fine-side plane cells: quadrant ``off = off_hi * 2 + off_lo``,
-    upsampled 2x per perpendicular dim."""
+def _expand_half(col, off, bs: int):
+    """col [V, bs, C], off [V] in {0,1} -> entry j = col[off*bs/2 + j//2]."""
+    low = col[:, : bs // 2].repeat_interleave(2, dim=1)
+    high = col[:, bs // 2:].repeat_interleave(2, dim=1)
+    return torch.where((off == 1)[:, None, None], high, low)
+
+
+def _expand_coarse(col, off, bs: int, nd: int):
+    """Coarse edge plane -> the values seen by the fine-side plane cells.
+
+    2D: col [V, bs, C], off in {0, 1} (which half). 3D: col [V, bs, bs, C]
+    (hi-major), quadrant ``off = off_hi * 2 + off_lo``, upsampled 2x per
+    perpendicular dim."""
+    if nd == 2:
+        return _expand_half(col, off, bs)
     h = bs // 2
     outs = []
     for qh in (0, 1):
@@ -59,9 +72,13 @@ def _expand_coarse(col, off, bs: int):
     return out
 
 
-def _coarse_side_neighbors(planes):
-    """Four fine-block edge planes (hi-major quadrant order, each
-    [V, bs, bs, C]) -> the four per-coarse-cell sub-face value sets."""
+def _coarse_side_neighbors(planes, nd: int):
+    """Fine-block edge planes -> the 2^(nd-1) per-coarse-cell sub-face
+    value sets. 2D: planes = [f_low, f_high], each [V, bs, C]. 3D: four
+    planes in hi-major quadrant order, each [V, bs, bs, C]."""
+    if nd == 2:
+        fine = torch.cat(list(planes), dim=1)            # [V, 2bs, C]
+        return [fine[:, 0::2], fine[:, 1::2]]
     top = torch.cat([planes[0], planes[1]], dim=2)
     bot = torch.cat([planes[2], planes[3]], dim=2)
     p2 = torch.cat([top, bot], dim=1)                  # [V, 2bs, 2bs, C]
@@ -75,13 +92,13 @@ def interface_corrections(
     """Structured 2:1 interface contributions along dim ``d``
     (`ibx.ops.block_ops.interface_corrections` with ``edge_fetch``).
 
-    ``fetch(s, blocks) -> [V, bs, bs, K]`` gives the channel-last side-s
+    ``fetch(s, blocks) -> [V, lat.., K]`` gives the channel-last side-s
     edge planes of the given blocks; ``face_fn(W_owner, W_neighbor,
     h_owner, h_neighbor) -> [..., n_out]`` evaluates faces with the owner
     on the minus side. Channels flagged in ``signed_mask`` accumulate
     Green-Gauss style (+ on a cell's plus side, - on its minus side).
 
-    Returns, per side s, None or ``(blocks [V], vals [V, bs, bs, n_out])``:
+    Returns, per side s, None or ``(blocks [V], vals [V, lat.., n_out])``:
     the interface blocks (fine-side rows first, then coarse-side rows; the
     two sets are disjoint) and their edge-plane corrections, already divided
     by the accumulating cell's spacing. The JAX package places these rows
@@ -110,10 +127,10 @@ def interface_corrections(
                                         bt.cs_fine[d][s].t().reshape(-1)]))
         h_own = hshape(blocks)
         # fine side: the facing quadrant of the coarse neighbor's plane;
-        # coarse side: the four fine sub-face sets of each coarse cell
-        theirs = [_expand_coarse(other[:Vf], bt.fs_off[d][s], bs)]
+        # coarse side: the 2^(nd-1) fine sub-face sets of each coarse cell
+        theirs = [_expand_coarse(other[:Vf], bt.fs_off[d][s], bs, nd)]
         theirs += _coarse_side_neighbors(
-            other[Vf:].unflatten(0, (n_fine, Vc)).unbind(0))
+            other[Vf:].unflatten(0, (n_fine, Vc)).unbind(0), nd)
         mine = torch.cat([own[:Vf]] + [own[Vf:]] * n_fine)
         theirs = torch.cat(theirs)
         hm = torch.cat([h_own[:Vf]] + [h_own[Vf:]] * n_fine)
@@ -149,7 +166,8 @@ def interface_corrections(
 # ---------------------------------------------------------------------------
 
 def _axis(bt: BlockTables, d: int) -> int:
-    """Array axis of spatial dim d in the [B, z, y, x, C] layout."""
+    """Array axis of spatial dim d in the [B, x_{nd-1}, ..., x_0, C]
+    layout ([B, y, x, C] in 2D, [B, z, y, x, C] in 3D)."""
     return 1 + (bt.nd - 1 - d)
 
 
@@ -158,7 +176,8 @@ def _h_bcast(bt: BlockTables, d: int, n_trailing: int = 1):
 
 
 def _edge(bt: BlockTables, u3, d: int, s: int):
-    """Edge plane of every block: [B, lat_hi, lat_lo, C] (a view)."""
+    """Edge plane of every block: [B, lat.., C] (a view; the lateral
+    dims keep their array order, highest dim first)."""
     return u3.select(_axis(bt, d), bt.block_size - 1 if s else 0)
 
 
@@ -187,19 +206,55 @@ def cat_fn(face_fn: Callable, widths: Sequence[int]) -> Callable:
     return fn
 
 
+def _sparse_accum(bt: BlockTables, d: int, parts, face_fn: Callable,
+                  n_out: int, signed_mask: Sequence[float], o, n, wr, wl):
+    """Sparse face accumulation: gather the (owner, neighbor) rows of the
+    channel-part grids ``parts``, evaluate ``face_fn`` (over tuples of
+    parts), scatter-add with per-face weights (wr to the owner, wl to the
+    neighbor with the signed flip) and divide by the cell spacing:
+    [n_cells, n_out]. The scatter is `index_add_`, atomic on the card: a
+    cell with several leftover faces sums them in an order that varies
+    from run to run."""
+    flats = [p.reshape(bt.n_cells, -1) for p in parts]
+    fn = cat_fn(face_fn, [f.shape[-1] for f in flats])
+
+    def gather(idx):
+        rows = [f.index_select(0, idx) for f in flats]
+        return rows[0] if len(rows) == 1 else torch.cat(rows, dim=-1)
+
+    sp = bt.spacing_flat[:, d]
+    vals = fn(gather(o), gather(n), sp[o][:, None], sp[n][:, None])
+    pm = torch.where(torch.as_tensor(signed_mask, dtype=vals.dtype,
+                                     device=vals.device) > 0, -1.0, 1.0)
+    out = torch.zeros((bt.n_cells, n_out), dtype=vals.dtype,
+                      device=vals.device)
+    out.index_add_(0, o, wr[:, None] * vals)
+    out.index_add_(0, n, wl[:, None] * vals * pm)
+    return out / sp[:, None]
+
+
+def _generic_sparse(bt: BlockTables, d: int, parts, face_fn: Callable,
+                    n_out: int, signed_mask: Sequence[float]):
+    """Leftover faces: batched gather + scatter-add (exotic topologies)."""
+    return _sparse_accum(bt, d, parts, face_fn, n_out, signed_mask,
+                         bt.sp_owner[d], bt.sp_neighbor[d],
+                         bt.sp_wr[d], bt.sp_wl[d])
+
+
 def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
                     n_out: int, signed_mask: Sequence[float]):
     """Green-Gauss-style accumulation of per-face quantities into cells
     along dim ``d`` (the JAX package's default concat formulation).
 
     ``face_fn(W_owner, W_neighbor, h_owner, h_neighbor) -> [..., n_out]``;
-    ``W3`` is one [B, bs, bs, bs, K] grid or a tuple of channel-part grids
+    ``W3`` is one [B, bs, ..., bs, K] grid or a tuple of channel-part grids
     (``face_fn`` then receives tuples). Channels flagged in ``signed_mask``
     accumulate (right - left)/h, the others (right + left)/h. Each face is
     evaluated once: interior faces on slice windows, block-edge faces on
     the halo planes (dense neighbor's edge, own edge mirrored on one-sided
-    sides, masked to zero on 2:1 sides), and the 2:1 rows of
-    `interface_corrections` are added in place at the edge slots."""
+    sides, masked to zero on 2:1 sides), the 2:1 rows of
+    `interface_corrections` are added in place at the edge slots, and the
+    generic sparse leftover, where the mesh has one, is added last."""
     tup = isinstance(W3, (tuple, list))
     parts = tuple(W3) if tup else (W3,)
     fn = face_fn if tup else (
@@ -245,6 +300,9 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
         if cols[s] is not None:
             blocks, vals = cols[s]
             _edge(bt, out, d, s).index_add_(0, blocks, vals)
+    if bt.sp_owner[d].shape[0]:
+        out = out + _generic_sparse(bt, d, parts, fn, n_out,
+                                    signed_mask).reshape(out.shape)
     return out
 
 
@@ -269,27 +327,36 @@ def face_a(with_dt: bool) -> Callable:
     return fn
 
 
-def face_b(fluid: Fluid, high_order: bool, d: int) -> Callable:
-    """Pass B's face function over parts (P, du_d, nu): -HLL flux of the
-    MUSCL-reconstructed face with the JST blend."""
+def face_b(fluid: Fluid, high_order: bool, d: int,
+           has_fix: bool = False) -> Callable:
+    """Pass B's face function over parts (P, du_d, nu [, fix]): -HLL flux
+    of the MUSCL-reconstructed face with the JST blend. With ``has_fix``
+    a face takes the larger ``fix`` of its two cells: it scales the limited
+    slopes toward first order, forces the blend to limited upwinding and
+    widens the HLL wave speeds to the Einfeldt bounds."""
     def fn(Wo, Wn, ho, hn):
         Po, Pn = Wo[0], Wn[0]
         duo, dun = Wo[1], Wn[1]
         Do, Dn = Wo[2], Wn[2]
+        fo = torch.maximum(Wo[3], Wn[3]) if has_fix else None
         down, dneigh = ho / 2, hn / 2
         grad_f = (Pn - Po) / (down + dneigh)
         slope_o = (2 * duo - grad_f) * down
         slope_n = (2 * dun - grad_f) * dneigh
         lim = minmod(slope_n, slope_o)
+        if has_fix:
+            lim = lim * (1.0 - fo)
         PL = Po + lim
         PR = Pn - lim
         D = torch.maximum(Do, Dn).clamp(min=1e-7)
+        if has_fix:
+            D = torch.maximum(D, fo)
         uf = (Po * dneigh + Pn * down) / (down + dneigh)
         if high_order:
             uf = uf + (duo * down - dun * dneigh) / 8
         PL = PL * D + (1.0 - D) * uf
         PR = PR * D + (1.0 - D) * uf
-        return -inviscid_fluxes_hll(fluid, PL, PR, d)
+        return -inviscid_fluxes_hll(fluid, PL, PR, d, fix=fo)
 
     return fn
 
@@ -299,23 +366,28 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
                    cfl: float = 0.8, frozen=None, fix3=None,
                    viscous: bool = False, mu_t3=None, cut3=None,
                    kernels: bool = True, fold: bool = False):
-    """Euler dQ/dt on the block-grid state ``[B, bs, bs, bs, C]`` (MUSCL +
-    JST blend + HLL). Returns R3; with ``with_dt`` also dt3 [B, bs, bs, bs]
-    and the frozen (du3_list, nu3) grids, which ``frozen`` takes back to
-    skip pass A (frozen-limiter RK stages).
+    """Euler dQ/dt on the block-grid state ``[B, bs, ..., bs, C]`` (MUSCL
+    + JST blend + HLL). Returns R3; with ``with_dt`` also dt3 [B, bs, ...,
+    bs] and the frozen (du3_list, nu3) grids, which ``frozen`` takes back
+    to skip pass A (frozen-limiter RK stages).
+
+    ``fix3`` (optional [B, bs.., 1] in [0, 1]): the local robustness blend
+    of `face_b` (first order + Einfeldt wave speeds where > 0, the
+    reference numerics where 0 or None).
 
     ``kernels`` (the counterpart of ``IBX_PALLAS_RHS``): every
     `rhs_cs.pallas_eligible` call goes to the kernel route
     `rhs_cs.euler_rhs_grid_pallas` (on the CPU the kernels' plain versions
     run); False forces the torch-op body, which also serves the ineligible
-    calls (``frozen``). ``fold`` reaches the kernel route's plain-RHS call.
-    ``fix3``, ``viscous``, ``mu_t3`` and ``cut3`` raise NotImplementedError.
+    calls (nd = 2, ``frozen``, ``fix3``, a sparse leftover). ``fold``
+    reaches the kernel route's plain-RHS call. ``viscous``, ``mu_t3`` and
+    ``cut3`` raise NotImplementedError.
     """
-    if fix3 is not None or viscous or mu_t3 is not None or cut3 is not None:
+    if viscous or mu_t3 is not None or cut3 is not None:
         raise NotImplementedError(
-            "euler_rhs_grid: fix3, viscous, mu_t3 and cut3 are " + _NOT_PORTED)
+            "euler_rhs_grid: viscous, mu_t3 and cut3 are " + _NOT_PORTED)
     from .rhs_cs import euler_rhs_grid_pallas, pallas_eligible
-    if kernels and pallas_eligible(bt, frozen=frozen):
+    if kernels and pallas_eligible(bt, frozen=frozen, fix3=fix3):
         return euler_rhs_grid_pallas(bt, fluid, P3, high_order=high_order,
                                      with_dt=with_dt, cfl=cfl, fold=fold)
     nd = bt.nd
@@ -343,11 +415,13 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
         if with_dt:
             dt_bound = dt_bound + outA[..., ncomp + 2]
 
+    has_fix = fix3 is not None
     R3 = torch.zeros_like(P3)
     for d in range(nd):
-        R3 = R3 + face_accumulate(bt, d, (P3, du_grids[d], nu3),
-                                  face_b(fluid, high_order, d), ncomp,
-                                  [1.0] * ncomp)
+        Vparts = (P3, du_grids[d], nu3) + ((fix3,) if has_fix else ())
+        R3 = R3 + face_accumulate(bt, d, Vparts,
+                                  face_b(fluid, high_order, d, has_fix),
+                                  ncomp, [1.0] * ncomp)
     if with_dt:
         return R3, cfl / dt_bound, (du_grids, nu3)
     return R3
@@ -355,15 +429,17 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
 
 def euler_rhs_block(bt: BlockTables, fluid: Fluid, P, *,
                     high_order: bool = True, with_dt: bool = False,
-                    cfl: float = 0.8, frozen=None):
+                    cfl: float = 0.8, frozen=None, fix=None):
     """Flat-state wrapper of `euler_rhs_grid` ([N, C] in / [N, C] out);
-    ``frozen`` uses the flat (du_list, nu [N]) convention."""
+    ``frozen`` uses the flat (du_list, nu [N]) convention and ``fix`` is
+    the flat [N] robustness blend."""
     if frozen is not None:
         du_flat, nu = frozen
         frozen = ([to_blocks(bt, du) for du in du_flat],
                   to_blocks(bt, nu[:, None]))
+    fix3 = None if fix is None else to_blocks(bt, fix[:, None])
     out = euler_rhs_grid(bt, fluid, to_blocks(bt, P), high_order=high_order,
-                         with_dt=with_dt, cfl=cfl, frozen=frozen)
+                         with_dt=with_dt, cfl=cfl, frozen=frozen, fix3=fix3)
     if not with_dt:
         return to_flat(bt, out)
     R3, dt3, (du_grids, nu3) = out
@@ -376,6 +452,51 @@ def euler_rhs_block(bt: BlockTables, fluid: Fluid, P, *,
 # grid marches
 # ---------------------------------------------------------------------------
 
+def smooth_residual_grid(bt: BlockTables, R3, *, eps: float = 0.6,
+                         n_sweeps: int = 2, active3=None):
+    """Implicit residual smoothing (Jameson): Jacobi sweeps toward
+    (I - eps nabla^2) Rs = R, raising the stable CFL by ~sqrt(1 + 4 eps).
+
+    The steady state is untouched (R = 0 is a fixed point of the smoother),
+    so the smoothing stencil may be approximate: block sides without a
+    same-size dense neighbor (2:1 interfaces) mirror the own edge plane.
+    ``active3`` masks cells whose residuals are meaningless (frozen
+    solid-interior cells) out of the smoothing stencil; they keep their
+    input residual."""
+    nd, bs = bt.nd, bt.block_size
+    if active3 is not None:
+        R_in = R3
+        R3 = R3 * active3[..., None]
+
+    def bmask(v):
+        return v.reshape((bt.n_blocks,) + (1,) * (R3.dim() - 1))
+
+    def neighbor_sum(Rs):
+        acc = None
+        for d in range(nd):
+            ax = _axis(bt, d)
+            first = Rs.narrow(ax, 0, 1)
+            last = Rs.narrow(ax, bs - 1, 1)
+            halo_l = torch.where(bmask(bt.edge_valid[d][0]) > 0,
+                                 last.index_select(0, bt.nbr[d][0]), first)
+            halo_l = torch.where(bmask(bt.bnd[d][0]) > 0, first, halo_l)
+            halo_r = torch.where(bmask(bt.edge_valid[d][1]) > 0,
+                                 first.index_select(0, bt.nbr[d][1]), last)
+            halo_r = torch.where(bmask(bt.bnd[d][1]) > 0, last, halo_r)
+            up = torch.cat([halo_l, Rs, halo_r], dim=ax)
+            s = up.narrow(ax, 0, bs) + up.narrow(ax, 2, bs)
+            acc = s if acc is None else acc + s
+        return acc
+
+    Rs = R3
+    denom = 1.0 + eps * 2 * nd
+    for _ in range(n_sweeps):
+        Rs = (R3 + eps * neighbor_sum(Rs)) / denom
+    if active3 is not None:
+        Rs = torch.where(active3[..., None] > 0, Rs, R_in)
+    return Rs
+
+
 def rk2_step_grid(bt: BlockTables, fluid: Fluid, P3, apply_bcs3: Callable,
                   *, cfl: float = 0.8, high_order: bool = True,
                   active3=None, freeze_gradients: bool = False,
@@ -383,17 +504,18 @@ def rk2_step_grid(bt: BlockTables, fluid: Fluid, P3, apply_bcs3: Callable,
                   fold: bool = False):
     """Local-dt TVD-RK2 pseudo step on the cell-major state (reference
     semantics ``src/ImmersedBoundary.jl:873-1157``); ``apply_bcs3`` maps
-    grid -> grid. ``active3`` (f32[B, bs, bs, bs], 0/1) freezes cells;
+    grid -> grid. ``active3`` (f32[B, bs, ..., bs], 0/1) freezes cells;
     ``freeze_gradients`` reuses the stage-1 gradients and sensor in stage 2
     (which then runs the torch-op body); ``fold`` as in `euler_rhs_grid`
     (it reaches stage 2 only, as in the JAX package). ``irs_eps > 0``
-    raises NotImplementedError. Returns (P2, resnorm)."""
-    if irs_eps > 0.0:
-        raise NotImplementedError("rk2_step_grid: implicit residual "
-                                  "smoothing (irs_eps) is " + _NOT_PORTED)
+    smooths both residuals (`smooth_residual_grid`; raise ``cfl`` by
+    ~sqrt(1 + 4 eps)); ``fix3`` as in `euler_rhs_grid`. Returns (P2,
+    resnorm)."""
     R0, dt3, frozen = euler_rhs_grid(bt, fluid, P3, high_order=high_order,
                                      with_dt=True, cfl=cfl, fix3=fix3,
                                      cut3=cut3)
+    if irs_eps > 0.0:
+        R0 = smooth_residual_grid(bt, R0, eps=irs_eps, active3=active3)
     if active3 is not None:
         dt3 = dt3 * active3
     dt = dt3[..., None]
@@ -402,6 +524,8 @@ def rk2_step_grid(bt: BlockTables, fluid: Fluid, P3, apply_bcs3: Callable,
     R1 = euler_rhs_grid(bt, fluid, P1, high_order=high_order,
                         frozen=frozen if freeze_gradients else None,
                         fix3=fix3, cut3=cut3, fold=fold)
+    if irs_eps > 0.0:
+        R1 = smooth_residual_grid(bt, R1, eps=irs_eps, active3=active3)
     P2 = apply_bcs3(state2primitive_guarded(fluid, Q0 + dt * (R0 + R1) / 2))
     return P2, R0[..., 0].abs().max()
 
@@ -419,16 +543,33 @@ def euler_step_grid(bt: BlockTables, fluid: Fluid, P3, apply_bcs3: Callable,
     return apply_bcs3(state2primitive_guarded(fluid, Q)), R[..., 0].abs().max()
 
 
+def _flat_bcs(bt: BlockTables, apply_bcs: Callable) -> Callable:
+    def apply_bcs3(P3):
+        return to_blocks(bt, apply_bcs(to_flat(bt, P3)))
+    return apply_bcs3
+
+
+def _active3(bt: BlockTables, active):
+    return None if active is None else to_blocks(bt, active[:, None])[..., 0]
+
+
 def rk2_step_block(bt: BlockTables, fluid: Fluid, P, apply_bcs: Callable, *,
                    cfl: float = 0.8, high_order: bool = True, active=None,
                    freeze_gradients: bool = False, fold: bool = False):
     """Flat-state wrapper of `rk2_step_grid` (P [N, C], BCs on the flat
     state)."""
-    active3 = None if active is None else to_blocks(bt, active[:, None])[
-        ..., 0]
     P2, resnorm = rk2_step_grid(
-        bt, fluid, to_blocks(bt, P),
-        lambda P3: to_blocks(bt, apply_bcs(to_flat(bt, P3))),
-        cfl=cfl, high_order=high_order, active3=active3,
+        bt, fluid, to_blocks(bt, P), _flat_bcs(bt, apply_bcs),
+        cfl=cfl, high_order=high_order, active3=_active3(bt, active),
         freeze_gradients=freeze_gradients, fold=fold)
     return to_flat(bt, P2), resnorm
+
+
+def euler_step_block(bt: BlockTables, fluid: Fluid, P, apply_bcs: Callable,
+                     *, cfl: float = 0.4, high_order: bool = True,
+                     active=None):
+    """Flat-state wrapper of `euler_step_grid`."""
+    P1, resnorm = euler_step_grid(
+        bt, fluid, to_blocks(bt, P), _flat_bcs(bt, apply_bcs),
+        cfl=cfl, high_order=high_order, active3=_active3(bt, active))
+    return to_flat(bt, P1), resnorm

@@ -112,11 +112,12 @@ def pallas_eligible(bt: BlockTables, *, viscous: bool = False, fix3=None,
     asks for 8 or 16, the TPU kernels' tilings; the CUDA kernels run one
     CUDA block of bs^2 threads per mesh block, so they also take 4 (16
     threads, the parity fixture's size) but not 2 (4 threads) or 32 (1024
-    threads and four times the shared-memory tile). No generic sparse
-    leftover exists: `BlockTables.from_numpy` rejects it."""
+    threads and four times the shared-memory tile). A mesh with generic
+    sparse leftover faces stays on the torch-op body, which accumulates
+    them; so does nd = 2, for which no kernel exists in either package."""
     return (bt.nd == 3 and bt.block_size in STENCIL_BLOCK_SIZES
             and not viscous and fix3 is None and cut3 is None
-            and frozen is None and mu_t3 is None)
+            and frozen is None and mu_t3 is None and bt.n_sparse == 0)
 
 
 def gradients_cs(bt: BlockTables, fluid: Fluid, Pc, *, with_dt: bool,
@@ -179,7 +180,12 @@ def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
     cfl-scaled); with ``with_frozen`` also the corrected ``(du_cs,
     nu_cs)``, last. ``fold`` hands the 2:1 gradient corrections to pass B's
     fold kernel instead of adding them to ``du_cs``; ``with_frozen`` turns
-    it off, since it hands ``du_cs`` out."""
+    it off, since it hands ``du_cs`` out. The kernels cover the dense and
+    the structured 2:1 faces only: tables with generic sparse leftover
+    faces raise (`pallas_eligible` keeps them off this route)."""
+    if bt.n_sparse:
+        raise ValueError("euler_rhs_cs: the channel-split kernels do not "
+                         "cover generic sparse leftover faces")
     nd, bs = bt.nd, bt.block_size
     ncomp = Pc.shape[1]
     fold = fold and not with_frozen

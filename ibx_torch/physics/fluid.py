@@ -87,3 +87,8 @@ def physicality_guard(P, p_floor=1.0, u_max=3000.0, p_ceil=1e9, T_ceil=2e4):
     return torch.cat(
         [P[..., 0:1].clamp(p_floor, p_ceil), P[..., 1:2].clamp(max=T_ceil),
          u * scale], dim=-1)
+
+
+def pressure_coefficient(fluid: Fluid, p, p_inf: float, M_inf: float):
+    """Cp = 2 (p/p_inf - 1) / (gamma M^2) (reference ``src/cfd.jl:420-426``)."""
+    return 2.0 * (p / p_inf - 1.0) / (M_inf ** 2 * fluid.gamma)

@@ -22,16 +22,26 @@ def _flux_one_side(fluid: Fluid, P, dim: int):
     return Q, F, u_n
 
 
-def inviscid_fluxes_hll(fluid: Fluid, PL, PR, dim: int):
+def inviscid_fluxes_hll(fluid: Fluid, PL, PR, dim: int, *, fix=None):
     """HLL flux from left/right primitive states with the reference's
     one-sided wave speeds ``SL = max(uL + aL, 0)``, ``SR = min(uR - aR, 0)``;
-    faces with SL = SR = 0 get F = 0."""
+    faces with SL = SR = 0 get F = 0.
+
+    ``fix`` (optional [..., 1] blend in [0, 1]): where > 0, widens the wave
+    speeds toward the two-sided Einfeldt/Davis bounds ``SL = max(uL + aL,
+    uR + aR, 0)``, ``SR = min(uL - aL, uR - aR, 0)``, an entropy fix for
+    strong expansions. None keeps the reference formula bit-exact."""
     QL, FL, uL = _flux_one_side(fluid, PL, dim)
     QR, FR, uR = _flux_one_side(fluid, PR, dim)
     aL = speed_of_sound(fluid, PL[..., 1])
     aR = speed_of_sound(fluid, PR[..., 1])
     SL = (uL + aL).clamp(min=0.0)[..., None]
     SR = (uR - aR).clamp(max=0.0)[..., None]
+    if fix is not None:
+        SLe = torch.maximum(SL, (uR + aR)[..., None])
+        SRe = torch.minimum(SR, (uL - aL)[..., None])
+        SL = SL + fix * (SLe - SL)
+        SR = SR + fix * (SRe - SR)
     denom = SL - SR
     safe = denom > 0
     return torch.where(

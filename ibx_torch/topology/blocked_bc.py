@@ -3,7 +3,8 @@
 `GhostBC.apply_cs` and `GhostBC.apply_grid` have the semantics of the JAX
 package's `FusedBoundary.__call__` (`ibx/topology/domain.py`), which
 `BlockedBC.cs` and `BlockedBC.__call__` apply on the channel-split
-``[B, C, bs, bs*bs]`` and the cell-major ``[B, bs, bs, bs, C]`` state:
+``[B, C, bs, bs*bs]`` and the cell-major ``[B, bs, ..., bs, C]`` state
+(nd = 2 or 3):
 gather the image-point stencils, apply the per-family BC callbacks, blend
 with eta, guard, and write the ghosts back once. The ghost set comes from
 `_collect_families`, a verbatim numpy copy of the JAX package's function.
@@ -71,7 +72,7 @@ def _collect_families(dom, names: Sequence[str]) -> dict:
 @dataclasses.dataclass
 class GhostBC:
     """Fused multi-family ghost BC. Stencil point k of ghost g is cell
-    (``src_b[g, k]``, ``src_w[g, k]``) of the ``[B, C, bs^3]`` view with
+    (``src_b[g, k]``, ``src_w[g, k]``) of the ``[B, C, bs^nd]`` view with
     weight ``w[g, k]``; ghost g itself is (``ghost_b[g]``, ``ghost_w[g]``).
     The ghosts are unique, so the write-back is exact."""
 
@@ -135,8 +136,9 @@ class GhostBC:
 
     def apply_grid(self, P3, fns: Dict[str, Callable], *,
                    guard: Optional[Callable] = None):
-        """`apply_cs` on the cell-major state ``P3`` ``[B, bs, bs, bs, C]``
-        (contiguous), through its ``[B, bs^3, C]`` view, IN PLACE."""
+        """`apply_cs` on the cell-major state ``P3`` ``[B, bs, ..., bs, C]``
+        (contiguous; 2D or 3D), through its ``[B, bs^nd, C]`` view, IN
+        PLACE."""
         view = P3.view(P3.shape[0], -1, P3.shape[-1])
         view[self.ghost_b, self.ghost_w] = self._ghost_values(
             lambda b, w: view[b, w], fns, guard)

@@ -2,21 +2,24 @@
 
 `build_block_tables_raw` is a verbatim numpy copy of the JAX package's
 host compiler (`ibx/topology/blocks.py`); it returns that package's
-`BlockTables` fields as a dict of numpy arrays. `BlockTables` holds the
-subset the channel-split march needs as tensors on one device, plus the
-per-block tables the CUDA kernels read (`meta`, `nbr_table`).
+`BlockTables` fields as a dict of numpy arrays, at nd = 2 or 3.
+`BlockTables` holds what the block marches need as tensors on one device,
+plus, at nd = 3, the per-block tables the CUDA kernels read (`meta`,
+`nbr_table`, `fold_rows`).
 
 Face classification (see the JAX module): intra-block and equal-size
 inter-block faces are dense shifts; outer-boundary one-sided faces are
 self-neighbor sides; 2:1 refinement interfaces are structured
-block-column corrections; anything else is a generic sparse leftover,
-which the port does not support (`BlockTables.from_numpy` raises).
+block-column corrections; anything else is a generic sparse leftover
+(`sp_owner` / `sp_neighbor` / `sp_wr` / `sp_wl`), which
+`block_ops.face_accumulate` gathers and scatter-adds and the CUDA kernel
+route leaves to it (`rhs_cs.pallas_eligible`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,12 +35,18 @@ class BlockTables:
     Structured 2:1 interfaces per dim d and side s: fs_block / fs_coarse /
       fs_off (fine side: fine block, coarse neighbor, quadrant), cs_block /
       cs_fine (coarse side: coarse block, its 2^(nd-1) fine neighbors).
-    Kernel tables: meta f32[B, 16] = h_d (3), edge_valid[d][s] (6),
-      bnd[d][s] (6), pad; nbr_table int32[B, 8] = nbr[d][s] (x0 x1 y0 y1
-      z0 z1), pad; fold_rows int32[B, 6]: at 2d + s, the row of block b in
-      the (d, s)-ordered concatenation of the interface rows
-      cat(fs_block[d][s], cs_block[d][s]), or -1 (the pass-B fold's row
-      index, `kernels.euler_pass_b`).
+    Generic sparse leftover per dim d: sp_owner / sp_neighbor int64[F_d]
+      flat cell ids, sp_wr / sp_wl f32[F_d] the face's weight on its owner
+      and on its neighbor; spacing_flat f32[N, nd] per-cell widths, held
+      only when some dim has leftover faces (else None); n_sparse their
+      count over all dims.
+    Kernel tables (nd = 3 only, None at nd = 2, which no kernel takes):
+      meta f32[B, 16] = h_d (3), edge_valid[d][s] (6), bnd[d][s] (6), pad;
+      nbr_table int32[B, 8] = nbr[d][s] (x0 x1 y0 y1 z0 z1), pad;
+      fold_rows int32[B, 6]: at 2d + s, the row of block b in the (d,
+      s)-ordered concatenation of the interface rows cat(fs_block[d][s],
+      cs_block[d][s]), or -1 (the pass-B fold's row index,
+      `kernels.euler_pass_b`).
     """
 
     nbr: Tuple
@@ -49,25 +58,28 @@ class BlockTables:
     fs_off: Tuple
     cs_block: Tuple
     cs_fine: Tuple
-    meta: torch.Tensor
-    nbr_table: torch.Tensor
-    fold_rows: torch.Tensor
+    sp_owner: Tuple
+    sp_neighbor: Tuple
+    sp_wr: Tuple
+    sp_wl: Tuple
+    spacing_flat: Optional[torch.Tensor]
+    meta: Optional[torch.Tensor]
+    nbr_table: Optional[torch.Tensor]
+    fold_rows: Optional[torch.Tensor]
     n_blocks: int
     block_size: int
     nd: int
     n_cells: int
+    n_sparse: int
 
     @classmethod
     def from_numpy(cls, f: Dict[str, object], device) -> "BlockTables":
         """Device tables from `build_block_tables_raw` output (or the JAX
         package's `BlockTables` fields as numpy arrays)."""
         nd, bs, B = int(f["nd"]), int(f["block_size"]), int(f["n_blocks"])
-        if nd != 3 or bs < 2 or bs & (bs - 1):
-            raise ValueError(f"channel-split tables need nd=3 and a "
+        if nd not in (2, 3) or bs < 2 or bs & (bs - 1):
+            raise ValueError(f"block tables need nd=2 or 3 and a "
                              f"power-of-two block size (nd={nd}, bs={bs})")
-        if any(np.asarray(o).shape[0] for o in f["sp_owner"]):
-            raise ValueError("generic sparse leftover faces are not "
-                             "supported by the channel-split kernels")
 
         def idx(a):
             return torch.as_tensor(np.array(a, np.int64), device=device)
@@ -79,22 +91,31 @@ class BlockTables:
             return tuple(tuple(conv(f[key][d][s]) for s in range(2))
                          for d in range(nd))
 
+        def per_dim(key, conv):
+            return tuple(conv(f[key][d]) for d in range(nd))
+
         h = np.asarray(f["h"], np.float32)
-        meta = np.zeros((B, 16), np.float32)
-        meta[:, 0:3] = h
-        nbr_table = np.zeros((B, 8), np.int32)
-        fold_rows = np.full((B, 6), -1, np.int32)
-        n_rows = 0
-        for d in range(nd):
-            for s in range(2):
-                meta[:, 3 + 2 * d + s] = f["edge_valid"][d][s]
-                meta[:, 9 + 2 * d + s] = f["bnd"][d][s]
-                nbr_table[:, 2 * d + s] = f["nbr"][d][s]
-                ifc = np.concatenate([np.asarray(f["fs_block"][d][s]),
-                                      np.asarray(f["cs_block"][d][s])])
-                fold_rows[ifc.astype(np.int64), 2 * d + s] = \
-                    n_rows + np.arange(ifc.shape[0], dtype=np.int32)
-                n_rows += ifc.shape[0]
+        n_sparse = sum(int(np.asarray(o).shape[0]) for o in f["sp_owner"])
+        meta = nbr_table = fold_rows = None
+        if nd == 3:
+            meta = np.zeros((B, 16), np.float32)
+            meta[:, 0:3] = h
+            nbr_table = np.zeros((B, 8), np.int32)
+            fold_rows = np.full((B, 6), -1, np.int32)
+            n_rows = 0
+            for d in range(nd):
+                for s in range(2):
+                    meta[:, 3 + 2 * d + s] = f["edge_valid"][d][s]
+                    meta[:, 9 + 2 * d + s] = f["bnd"][d][s]
+                    nbr_table[:, 2 * d + s] = f["nbr"][d][s]
+                    ifc = np.concatenate([np.asarray(f["fs_block"][d][s]),
+                                          np.asarray(f["cs_block"][d][s])])
+                    fold_rows[ifc.astype(np.int64), 2 * d + s] = \
+                        n_rows + np.arange(ifc.shape[0], dtype=np.int32)
+                    n_rows += ifc.shape[0]
+            meta = f32(meta)
+            nbr_table = torch.as_tensor(nbr_table, device=device)
+            fold_rows = torch.as_tensor(fold_rows, device=device)
         return cls(
             nbr=per_side("nbr", idx),
             bnd=per_side("bnd", f32),
@@ -105,10 +126,14 @@ class BlockTables:
             fs_off=per_side("fs_off", idx),
             cs_block=per_side("cs_block", idx),
             cs_fine=per_side("cs_fine", idx),
-            meta=f32(meta),
-            nbr_table=torch.as_tensor(nbr_table, device=device),
-            fold_rows=torch.as_tensor(fold_rows, device=device),
+            sp_owner=per_dim("sp_owner", idx),
+            sp_neighbor=per_dim("sp_neighbor", idx),
+            sp_wr=per_dim("sp_wr", f32),
+            sp_wl=per_dim("sp_wl", f32),
+            spacing_flat=f32(f["spacing_flat"]) if n_sparse else None,
+            meta=meta, nbr_table=nbr_table, fold_rows=fold_rows,
             n_blocks=B, block_size=bs, nd=nd, n_cells=int(f["n_cells"]),
+            n_sparse=n_sparse,
         )
 
 

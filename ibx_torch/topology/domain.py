@@ -1,11 +1,16 @@
-"""Domain compiler, host side only: octree mesh -> cells, faces and the
-global ghost-cell boundary tables.
+"""Domain compiler: octree mesh -> cells, faces, the global ghost-cell
+boundary tables and the postprocessing surfaces.
 
 Numpy copy of the host parts of `ibx/topology/domain.py` (cells and faces,
-`_build_host_boundary` and the STL ghost-band logic of ``Domain.__init__``).
-The partitions, postprocessing surfaces and device placement of the JAX
-package are not ported: the port's device tables are built from these
-arrays by `ibx_torch.topology.blocks` and `ibx_torch.topology.blocked_bc`.
+`_build_host_boundary`, the STL ghost-band logic of ``Domain.__init__``
+with its ``fluid_ghost_ratio`` / ``reflect_solid_images`` /
+``solve_inside_cells`` keywords, and the surface build). A `Surface`
+samples cell fields through two `Interp` tables, a gather and a weighted
+sum on torch tensors; they are built on the CPU and moved to the case's
+device with `Surface.to`. The partitions and their executor (``map``,
+``impose_bc``, ``FusedBoundary``) are not ported: the port's device tables
+are built from these arrays by `ibx_torch.topology.blocks` and
+`ibx_torch.topology.blocked_bc`.
 """
 
 from __future__ import annotations
@@ -15,15 +20,79 @@ import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 from scipy.spatial import cKDTree
 
 from ..geometry.inside import points_inside
 from ..geometry.octree import Mesh, get_cells
+from ..geometry.stereolitography import Stereolitography, centers_and_normals
 from .faces import hcube_faces, octree2faces_blocks
 from .ghosts import ghosts_and_projections_hcube, ghosts_and_projections_stl
 from .interp import interpolator
 
 _EPS32 = float(np.finfo(np.float32).eps)
+
+
+@dataclasses.dataclass
+class Interp:
+    """Fixed-width weighted gather-reduce table on one device (what the
+    JAX package's `Stencil` is to its surfaces): ``out[m] = sum_k w[m, k]
+    * v[idx[m, k]]``."""
+
+    idx: torch.Tensor    # int64[M, K] cell ids
+    w: torch.Tensor      # f32[M, K]
+
+    @classmethod
+    def from_numpy(cls, table) -> "Interp":
+        idx, w = table
+        return cls(idx=torch.as_tensor(np.array(idx, np.int64)),
+                   w=torch.as_tensor(np.array(w, np.float32)))
+
+    def to(self, device) -> "Interp":
+        return Interp(idx=self.idx.to(device), w=self.w.to(device))
+
+    def __call__(self, v):
+        v = torch.as_tensor(v, device=self.w.device)
+        w = self.w.reshape(self.w.shape + (1,) * (v.dim() - 1))
+        return (v[self.idx] * w).sum(dim=1)
+
+
+@dataclasses.dataclass
+class Surface:
+    """Postprocessing surface (reference ``src/ImmersedBoundary.jl:335-376``).
+
+    Sampling points are STL face centers offset 1.01 circumdiameters along the
+    unit normal; ``interpolator`` samples cell fields at the wall (stencil
+    biased off-wall), ``offset_interpolator`` at 1.5x the offset (wall-model
+    sampling). ``areas`` are normal magnitudes.
+    """
+
+    points: np.ndarray
+    offsets: np.ndarray
+    normals: np.ndarray
+    areas: np.ndarray
+    interpolator: Interp
+    offset_interpolator: Interp
+    stl: Stereolitography
+
+    def to(self, device) -> "Surface":
+        """The same surface with its two tables on ``device``."""
+        return dataclasses.replace(
+            self, interpolator=self.interpolator.to(device),
+            offset_interpolator=self.offset_interpolator.to(device))
+
+    def __call__(self, u):
+        return self.interpolator(u)
+
+    def at_offset(self, u):
+        return self.offset_interpolator(u)
+
+
+def surface_integral(surf: Surface, u):
+    """Area-weighted surface sum (reference ``src/ImmersedBoundary.jl:351-361``)."""
+    u = torch.as_tensor(u)
+    a = torch.as_tensor(surf.areas, device=u.device)
+    return (u * a.reshape(a.shape + (1,) * (u.dim() - 1))).sum(dim=0)
 
 
 @dataclasses.dataclass
@@ -141,9 +210,10 @@ def _build_host_boundary(
 
 
 class Domain:
-    """Host-side compiled domain: cells, faces and the global ghost
-    boundaries of the named families (the single-partition subset of the
-    JAX package's `Domain`)."""
+    """Host-side compiled domain: cells, faces, the global ghost
+    boundaries of the named families and the surfaces of the mesh's
+    distance fields (the single-partition subset of the JAX package's
+    `Domain`)."""
 
     def __init__(
         self,
@@ -151,8 +221,16 @@ class Domain:
         *,
         ghost_layer_ratio: float = 1.5,
         hypercube_families: Sequence[Tuple[str, Sequence[Tuple[int, bool]]]] = (),
+        fluid_ghost_ratio: Optional[float] = None,
+        reflect_solid_images: bool = False,
+        solve_inside_cells: Optional[np.ndarray] = None,
         verbose: bool = False,
     ):
+        # ``solve_inside_cells`` (bool[N], cut-cell wall support): in-solid
+        # cells the scheme SOLVES (fluid fraction above the cut-cell
+        # floor). They are dropped from STL ghost bands (the BC must not
+        # overwrite solved cells) and stay eligible as image-stencil
+        # sources.
         self.mesh = msh
         self.nd = msh.ndim
         self._verbose = bool(verbose)
@@ -175,7 +253,9 @@ class Domain:
         self._stage("faces", f"{self.face_dim.size} faces")
 
         tree = cKDTree(centers)
+        diams = np.sqrt((widths.astype(np.float64) ** 2).sum(1)).astype(np.float32)
         self._host_boundaries: Dict[str, HostBoundary] = {}
+        self.surfaces: Dict[str, Surface] = {}
         for bname, bfaces in hypercube_families:
             ghosts, projs = ghosts_and_projections_hcube(
                 list(bfaces), msh.origin, msh.widths, centers, widths,
@@ -198,9 +278,50 @@ class Domain:
             if dfield.stl.simplices.shape[0] and ghosts.size:
                 inside = np.zeros(N, bool)
                 inside[ghosts] = points_inside(dfield.stl, centers[ghosts])
+            if solve_inside_cells is not None and ghosts.size:
+                keep = ~solve_inside_cells[ghosts]
+                ghosts, projs = ghosts[keep], projs[keep]
+                if inside is not None:
+                    inside = inside & ~solve_inside_cells
+                self._stage(f"ghost-solved[{bname}]",
+                            f"{ghosts.size} kept (cut cells solved)")
+            if fluid_ghost_ratio is not None and inside is not None:
+                # flagged deviation from the reference's unsigned ghost
+                # band (src/ImmersedBoundary.jl:194-230): with the flag,
+                # fluid-side cells further than fluid_ghost_ratio *
+                # circumdiam from the wall are SOLVED, and the wall enters
+                # through the in-solid ghost rows (classic sharp-interface
+                # IB); see the JAX package's `Domain.__init__`
+                gd = np.sqrt(((centers[ghosts] - projs).astype(np.float64)
+                              ** 2).sum(1))
+                keep = inside[ghosts] | (
+                    gd <= fluid_ghost_ratio * diams[ghosts])
+                ghosts, projs = ghosts[keep], projs[keep]
+                self._stage(f"ghost-band[{bname}]",
+                            f"{ghosts.size} kept (solid+{fluid_ghost_ratio}d)")
             self._host_boundaries[bname] = _build_host_boundary(
                 centers, widths, tree, ghosts, projs, ghost_layer_ratio,
-                exclude_cells=inside,
+                exclude_cells=inside, reflect_solid=reflect_solid_images,
+            )
+            # postprocessing surface (reference src/ImmersedBoundary.jl:743-763)
+            stl = dfield.stl
+            fcenters, fnormals = centers_and_normals(stl)
+            _, idx = tree.query(fcenters, k=1, workers=-1)
+            h = diams[idx] * 1.01
+            A = np.sqrt((fnormals.astype(np.float64) ** 2).sum(1)).astype(np.float32) + _EPS32
+            unit_n = fnormals / A[:, None]
+            bias = unit_n * h[:, None]
+            self.surfaces[bname] = Surface(
+                points=fcenters,
+                offsets=h,
+                normals=unit_n,
+                areas=A,
+                interpolator=Interp.from_numpy(interpolator(
+                    centers, fcenters, tree, bias=bias, linear=True)),
+                offset_interpolator=Interp.from_numpy(interpolator(
+                    centers, fcenters + bias * ghost_layer_ratio, tree,
+                    linear=True)),
+                stl=stl,
             )
         self._stage(
             "boundaries",

@@ -22,6 +22,7 @@ from ibx.physics.fluid import physicality_guard as jx_guard
 
 from ibx_torch.cases import build_sphere3d
 from ibx_torch.ops import block_ops as bo
+from ibx_torch.ops import kernels as K
 from ibx_torch.physics.fluid import make_fluid
 
 from test_pallas_rhs import _perturbed, sphere  # noqa: F401
@@ -140,26 +141,58 @@ def test_march5_grid_matches_case_march(cases):
     assert chan_err(ref, out) < 1e-3, chan_err(ref, out)
 
 
-@pytest.mark.parametrize("option", ["fix3", "viscous", "mu_t3", "cut3",
-                                    "irs_eps", "cs_freeze"])
+@pytest.mark.parametrize("option", ["viscous", "mu_t3", "cut3",
+                                    "cs_freeze"])
 def test_unported_options_raise(setup, cases, option):
     """Options of the JAX grid path that the port does not have yet raise
     instead of being ignored."""
     bt, tb, P3 = setup
     fl, P3 = make_fluid(), t(P3)
     one = torch.ones(P3.shape[:-1] + (1,))
-    if option == "irs_eps":
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            bo.rk2_step_grid(tb, fl, P3, lambda X: X, irs_eps=0.6)
-    elif option == "cs_freeze":
+    if option == "cs_freeze":
         pt = cases[1]
         with pytest.raises(ValueError, match="grid"):
             pt.step(pt.P0, freeze_gradients=True)
     else:
-        kw = {"fix3": one, "viscous": True, "mu_t3": one,
+        kw = {"viscous": True, "mu_t3": one,
               "cut3": {"owner": ()}}[option]
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             bo.euler_rhs_grid(tb, fl, P3, **{option: kw})
+
+
+@pytest.mark.parametrize("option", ["fix3", "irs_eps"])
+def test_3d_options_match_ibx(setup, cases, option):
+    """The ``fix3`` blend and implicit residual smoothing at nd = 3 (both
+    leave the kernel route for the torch-op body) against the JAX package:
+    R 2e-4 per channel; one smoothed step < 1e-4 per channel."""
+    bt, tb, P3 = setup
+    fl, jfl = make_fluid(), jx_make_fluid()
+    if option == "fix3":
+        rng = np.random.default_rng(8)
+        fix = (rng.uniform(size=P3.shape[:-1] + (1,)) ** 4).astype(
+            np.float32)
+        ref = jbo.euler_rhs_grid(bt, jfl, jnp.asarray(P3),
+                                 fix3=jnp.asarray(fix))
+        K.reset_launches()
+        out = bo.euler_rhs_grid(tb, fl, t(P3), fix3=t(fix))
+        assert not any(K.launches.values())
+        assert chan_err(ref, out, axis=-1, floor=1e-3) < 2e-4, \
+            chan_err(ref, out, -1, 1e-3)
+        plain = bo.euler_rhs_grid(tb, fl, t(P3))
+        assert chan_err(plain, out, axis=-1) > 1e-4
+        return
+    jx, pt = cases
+    P = _perturbed_flat(jx)
+    ref, res_ref = jbo.rk2_step_grid(
+        jx.grid["bt"], jx.fluid, jbo.to_blocks(jx.grid["bt"], jnp.asarray(P)),
+        jx.grid["apply_bcs3"], cfl=1.0, active3=jx.grid["active3"],
+        irs_eps=0.5)
+    out, res = bo.rk2_step_grid(pt.bt, pt.fluid, bo.to_blocks(pt.bt, t(P)),
+                                pt.apply_bcs3, cfl=1.0, active3=pt.active3,
+                                irs_eps=0.5)
+    ref = np.asarray(ref).reshape(-1, 5)
+    assert chan_err(ref, out.reshape(-1, 5).numpy()) < 1e-4
+    assert abs(float(res) - float(res_ref)) <= 1e-4 * abs(float(res_ref))
 
 
 @pytest.mark.parametrize("entry", ["euler_rhs_block", "euler_step_grid",

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from ibx_torch.cases import build_sphere3d
+from ibx_torch.cases import build_rae2822, build_sphere3d
 from ibx_torch.ops import kernels as K
 from ibx_torch.physics.fluid import make_fluid
 
@@ -41,10 +41,35 @@ def test_no_jax_or_ibx_imports():
     assert not bad, bad
 
 
+def test_scan_covers_the_2d_modules():
+    """The import scan reaches the modules of the 2D arm, and none of them
+    names a file under the JAX package."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    want = {"ibx_torch/cases/rae2822.py", "ibx_torch/cases/__init__.py",
+            "ibx_torch/geometry/stereolitography.py",
+            "ibx_torch/geometry/__init__.py",
+            "ibx_torch/topology/domain.py", "ibx_torch/topology/blocks.py",
+            "ibx_torch/ops/block_ops.py", "ibx_torch/physics/flux.py",
+            "ibx_torch/convert.py", "chip_smoke.py"}
+    assert want <= names, want - names
+    for f in _port_files():
+        tree = ast.parse(f.read_text(), filename=str(f))
+        paths = [n.value for n in ast.walk(tree)
+                 if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                 and "\n" not in n.value and " " not in n.value
+                 and ":" not in n.value      # file:line labels are no paths
+                 and n.value.startswith("ibx/")]
+        assert not paths, (f, paths)
+    from ibx_torch.cases.rae2822 import RAE_DAT
+    assert (ROOT / "ibx_torch") in Path(RAE_DAT).resolve().parents
+
+
 def test_build_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_sphere3d(wall_h=0.25, block_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_rae2822(wall_h=8e-2, feature_h=4e-2)
 
 
 def test_cpu_tensors_launch_nothing():
