@@ -45,6 +45,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
  10. 2D breakdown: the parts of one step (CUDA events and the host's
      enqueue time over 20 calls each) and the card's busy share of a
      5-step window from `torch.profiler`;
+ 11. gather step parity: `build_rae2822(wall_h=8e-2, feature_h=4e-2,
+     cfl=0.7, use_blocks=False)` on the card and on the CPU, one
+     `case.step` of the generic gather march (`solve.euler.rk2_step` on
+     `dom.partitions[0]` with the fused ghost BC) from a perturbed state;
+ 12. gather vs block on the card, same fixture: `euler_rhs` against
+     `euler_rhs_block`, `local_timestep` against the block dt, 5 steps of
+     both marches, and the viscous pair with an `mu_t` field;
+ 13. the gather march at full width: `build_rae2822(wall_h=5e-4,
+     feature_h=2.5e-4, cfl=0.7, block_size=16, use_blocks=False)` (881,152
+     cells) restarted from the oracle's state, 2 warm-up steps, then 300
+     steps timed with CUDA events and the host clock; Cl in the committed
+     band, the four kernel counters 0, peak memory, and the card's busy
+     time a step from `torch.profiler`, printed beside the block march's
+     numbers of phases 9 and 10;
+ 14. 3D gather: one `build_sphere3d(wall_h=0.25, block_size=4,
+     use_blocks=False)` step card vs CPU, and 3 steps of it against the
+     grid march of the block case;
+ 15. four partitions: `dom.map` of `euler_rhs` over `Domain(n_partitions=4)`
+     on the card equals the one-partition result;
+ 16. the 3D gather march at full width: `build_sphere3d(wall_h=0.03,
+     cfl=0.5, block_size=16, use_blocks=False)` (5,308,416 cells), 2
+     warm-up steps, then 10 steps timed, the counters 0, and the card's
+     busy time a step, printed beside the block marches of phases 5 and 6;
 then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -94,6 +117,14 @@ RAE_FLAGSHIP = dict(wall_h=5e-4, feature_h=2.5e-4, cfl=0.7, block_size=16)
 RAE_CELLS = 881_152
 RAE_ORACLE = "tests/data/rae2822_cp_flagship.npz"
 RAE_WINDOW = 500
+GATHER_STEPS = 300
+# gather vs block (the limits of tests/test_block_ops.py and
+# tests/test_viscous.py): R per channel over the channel's max + 1e-3
+GVB_RHS_TOL = 2e-4
+GVB_DT_RTOL = 1e-4
+GVB_STEPS_TOL = 1e-3
+# one gather step, card vs CPU: the same torch ops on both devices
+GATHER_STEP_TOL = 1e-5
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
@@ -318,6 +349,31 @@ def perturbed2d(case, seed=5):
     return torch.as_tensor(P.astype(np.float32), device=case.P0.device)
 
 
+def profile_busy(fn, n_steps, tag, ms_step):
+    """The card's busy time a step: device time of every CUDA kernel and
+    copy that ``fn`` (``n_steps`` steps) launches under `torch.profiler`.
+    Returns (device activities a step, busy ms a step, traced wall ms a
+    step); ``ms_step`` is the untraced step the share is stated against."""
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    log(f"[{tag}] torch.profiler over {n_steps} steps (tracing on): "
+        f"{len(ev)} device activities ({len(ev) / n_steps:.0f} a step), "
+        f"device busy {busy_ms / n_steps:.3f} ms a step of "
+        f"{wall_ms / n_steps:.3f} ms wall a step "
+        f"({busy_ms / wall_ms:.1%} busy); against the untraced step of "
+        f"{ms_step:.3f} ms the card is busy {busy_ms / n_steps / ms_step:.1%}")
+    assert ev and busy_ms > 0, "torch.profiler recorded no device time"
+    return len(ev) / n_steps, busy_ms / n_steps, wall_ms / n_steps
+
+
 def rae2822_phases(root, dev, smi):
     """Phases 8-10: the 2D arm. It launches no kernel, so it adds no row
     to the kernels line; its counters are asserted to stay 0."""
@@ -433,27 +489,234 @@ def rae2822_phases(root, dev, smi):
     for label, fn in parts.items():
         ev, host = time_both(fn)
         log(f"  {label}: {ev:.4f} / {host:.4f} ms")
-    # the card's busy share: device time of every CUDA kernel and copy in
-    # a 5-step window over the window's wall time
-    n_prof = 5
-    prof_t0 = time.perf_counter()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        case.march(P, n_prof)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - prof_t0) * 1e3
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-    log(f"[breakdown2d] torch.profiler over {n_prof} steps (tracing on): "
-        f"{len(ev)} device activities ({len(ev) / n_prof:.0f} a step), "
-        f"device busy {busy_ms / n_prof:.3f} ms a step of "
-        f"{wall_ms / n_prof:.3f} ms wall a step "
-        f"({busy_ms / wall_ms:.1%} busy); against the untraced step of "
-        f"{ms_step:.3f} ms the card is busy {busy_ms / n_prof / ms_step:.1%}")
-    assert ev and busy_ms > 0, "torch.profiler recorded no device time"
+    acts, busy_ms, wall_ms = profile_busy(lambda: case.march(P, 5), 5,
+                                          "breakdown2d", ms_step)
     log(f"[2d] card: {smi}")
+    return dict(ms_step=ms_step, host_ms=sum(host_w) / 2, busy_ms=busy_ms,
+                activities=acts, peak=peak - base,
+                build_seconds=case.build_seconds, cl=cl, cd=cd,
+                cells_s=n_cells / (ms_step / 1e3))
+
+
+def scaled_err(ref, out):
+    """Max |out - ref| per channel (axis 1) over that channel's max |ref|
+    + 1e-3 (the scaling of tests/test_block_ops.py)."""
+    err = (out.double() - ref.double()).abs().amax(dim=0)
+    return float((err / (ref.double().abs().amax(dim=0) + 1e-3)).max())
+
+
+def gather_phases(root, dev, smi, blk):
+    """Phases 11-15: the generic gather path. It launches no kernel (its
+    ops are torch ops in the port as they are XLA ops in the JAX package),
+    so it adds no row to the kernels line; the counters are asserted to
+    stay 0. ``blk`` holds the block march's numbers of phases 9 and 10."""
+    from ibx_torch.cases import (build_rae2822, build_sphere3d,
+                                 force_coefficients)
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.ops import block_ops as bo
+    from ibx_torch.solve.euler import euler_rhs, local_timestep
+    from ibx_torch.topology.domain import Domain
+
+    zero = dict.fromkeys(K.launches, 0)
+    small = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7)
+
+    # 11. gather step, card vs CPU
+    gg = build_rae2822(device=dev, use_blocks=False, **small)
+    g_cpu = build_rae2822(device="cpu", use_blocks=False, **small)
+    P = perturbed2d(gg)
+    K.reset_launches()
+    Pg, rg = gg.step(P)
+    Pc, rc = g_cpu.step(P.cpu())
+    log(f"[gather-step] RAE2822 wall_h=8e-2 ({gg.dom.ncells} cells), "
+        f"use_blocks=False, one step, card vs CPU")
+    check("state (per channel)", chan_err(Pc, Pg.cpu()), GATHER_STEP_TOL)
+    check("resnorm (relative)",
+          abs(float(rg) - float(rc)) / abs(float(rc)), RES_TOL)
+    assert dict(K.launches) == zero, K.launches
+    del g_cpu
+
+    # 12. gather vs block on the card
+    bk = build_rae2822(device=dev, **small)
+    part, fl = gg.dom.partitions[0], gg.fluid
+    log("[gather-vs-block] same fixture, on the card")
+    check("euler_rhs vs euler_rhs_block (per channel, scaled)",
+          scaled_err(euler_rhs(part, fl, P),
+                     bo.euler_rhs_block(bk.bt, fl, P)), GVB_RHS_TOL)
+    dt_g = local_timestep(part, fl, P, 0.7)
+    _, dt_b, _ = bo.euler_rhs_block(bk.bt, fl, P, with_dt=True, cfl=0.7)
+    check("local_timestep vs block dt (relative)",
+          float(((dt_b - dt_g).abs() / dt_g.abs()).max()), GVB_DT_RTOL)
+    Pa = Pb = gg.P0
+    for _ in range(5):
+        Pa, _ = gg.step(Pa)
+        Pb, _ = bk.step(Pb)
+    check("5 steps, gather vs block (per channel)", chan_err(Pa, Pb),
+          GVB_STEPS_TOL)
+    x = torch.as_tensor(gg.dom.centers[:, 0], device=dev)
+    mu_t = 1e-4 * (1.0 + torch.sin(5 * x).abs())
+    R_g = euler_rhs(part, fl, P, viscous=True, mu_t=mu_t)
+    R_b = bo.to_flat(bk.bt, bo.euler_rhs_grid(
+        bk.bt, fl, bo.to_blocks(bk.bt, P), viscous=True,
+        mu_t3=bo.to_blocks(bk.bt, mu_t[:, None])))
+    check("viscous euler_rhs with an mu_t field vs euler_rhs_grid",
+          scaled_err(R_g, R_b), GVB_RHS_TOL)
+    assert float((R_g - euler_rhs(part, fl, P)).abs().max()) > 0
+    assert dict(K.launches) == zero, K.launches
+    del gg, bk
+
+    # 13. the gather march at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    case = build_rae2822(use_blocks=False, **RAE_FLAGSHIP)
+    part = case.dom.partitions[0]
+    n_cells = case.dom.ncells
+    fb_k = case.dom._host_boundaries["wall"].interp_idx.shape[1]
+    faces = [int(part.face_owner[d].shape[0]) for d in range(2)]
+
+    def nbytes(obj):
+        if torch.is_tensor(obj):
+            return obj.numel() * obj.element_size()
+        if isinstance(obj, (tuple, list)):
+            return sum(nbytes(o) for o in obj)
+        return sum(nbytes(v) for v in vars(obj).values()) \
+            if hasattr(obj, "__dict__") else 0
+
+    log(f"[gather] build_rae2822(use_blocks=False, {RAE_FLAGSHIP}): "
+        f"{n_cells} cells, faces a dim {faces}, accumulator width "
+        f"{part.acc_left[0].width}, wall image stencil width {fb_k}, "
+        f"partition tables {nbytes(part) / 2**20:.1f} MiB; build "
+        f"{case.build_seconds:.1f} s; Domain stages "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    case.dom.build_timings.items()))
+    assert n_cells == RAE_CELLS and case.bt is None
+    assert case.P0.device.type == dev.type == "cuda"
+    ref = np.load(root / RAE_ORACLE)
+    P = case.apply_bcs(torch.as_tensor(ref["P"], device=dev))
+    P = case.march(P, 2)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    e0.record()
+    P = case.march(P, GATHER_STEPS)
+    e1.record()
+    e1.synchronize()
+    host_ms = (time.perf_counter() - t0) / GATHER_STEPS * 1e3
+    launches = dict(K.launches)
+    ms_step = e0.elapsed_time(e1) / GATHER_STEPS
+    _, res = case.step(P)
+    finite = bool(torch.isfinite(P).all())
+    cl, cd = force_coefficients(case, P)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[gather] {GATHER_STEPS} steps: {ms_step:.3f} ms/step (CUDA events; "
+        f"host clock {host_ms:.3f}), {n_cells / (ms_step / 1e3):.4e} "
+        f"cell-updates/s, resnorm {float(res):.6e}, finite {finite}, peak "
+        f"memory {peak / 2**30:.3f} GiB above what the earlier phases hold; "
+        f"Cl {cl:.5f}, Cd {cd:.5f}; launches {launches}")
+    assert finite, "non-finite state after the gather march"
+    assert launches == zero, launches
+    assert CL_BAND[0] < cl < CL_BAND[1], cl
+    acts, busy_ms, _ = profile_busy(lambda: case.march(P, 5), 5, "gather",
+                                    ms_step)
+    log(f"[gather] beside the block march of this run (use_blocks=True, "
+        f"phases 9 and 10): ms/step {ms_step:.3f} vs {blk['ms_step']:.3f} "
+        f"(host clock {host_ms:.3f} vs {blk['host_ms']:.3f}), device busy "
+        f"{busy_ms:.3f} vs {blk['busy_ms']:.3f} ms a step, device "
+        f"activities a step {acts:.0f} vs {blk['activities']:.0f}, peak "
+        f"{peak / 2**30:.3f} vs {blk['peak'] / 2**30:.3f} GiB, build "
+        f"{case.build_seconds:.1f} vs {blk['build_seconds']:.1f} s, Cl "
+        f"{cl:.5f} vs {blk['cl']:.5f}, Cd {cd:.5f} vs {blk['cd']:.5f}; "
+        f"card: {smi}")
+    del case, part, P
+
+    # 14. 3D gather
+    sg = build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False,
+                        device=dev)
+    sc = build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False,
+                        device="cpu")
+    sb = build_sphere3d(wall_h=0.25, block_size=4, device=dev)
+    P = perturbed(sg)
+    K.reset_launches()
+    Pg, rg = sg.step(P)
+    assert dict(K.launches) == zero, K.launches
+    Pc, rc = sc.step(P.cpu())
+    log(f"[gather3d] bs=4 sphere ({sg.dom.ncells} cells), use_blocks=False, "
+        f"accumulator width {sg.dom.partitions[0].acc_left[0].width}: one "
+        f"step card vs CPU, then 3 steps against the grid march")
+    check("state (per channel)", chan_err(Pc, Pg.cpu()), GATHER_STEP_TOL)
+    check("resnorm (relative)",
+          abs(float(rg) - float(rc)) / abs(float(rc)), RES_TOL)
+    check("3 steps, gather vs grid march (per channel)",
+          chan_err(sb.march(sb.P0, 3, grid=True), sg.march(sb.P0, 3)),
+          GVB_STEPS_TOL)
+    del sc, sb
+
+    # 15. four partitions on the card
+    hf = [("farfield", [(0, False), (0, True), (1, False), (1, True),
+                        (2, False), (2, True)])]
+    d4 = Domain(sg.dom.mesh, n_partitions=4, hypercube_families=hf,
+                device=dev)
+    fl = sg.fluid
+    r1 = sg.dom.map(lambda part, Q: euler_rhs(part, fl, Q), P)
+    r4 = d4.map(lambda part, Q: euler_rhs(part, fl, Q), P)
+    n_dom = [p.n_dom for p in d4.partitions]
+    log(f"[partitions] Domain(n_partitions=4) on the bs=4 sphere: n_own "
+        f"{d4.n_own}, n_dom {n_dom}; dom.map of euler_rhs vs one partition")
+    assert r4.device.type == dev.type and min(n_dom) > d4.n_own
+    check("mapped euler_rhs, 4 partitions vs 1 (per channel, scaled)",
+          scaled_err(r1, r4), 1e-5)
+
+
+def gather3d_full(smi, blk3d):
+    """Phase 16: the production sphere on the gather march; ``blk3d`` holds
+    the ms a step of its block marches (phases 5 and 6)."""
+    from ibx_torch.cases import build_sphere3d
+    from ibx_torch.ops import kernels as K
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    case = build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16,
+                          use_blocks=False)
+    assert case.dom.ncells == 5_308_416 and case.P0.device.type == "cuda"
+    part = case.dom.partitions[0]
+    log(f"[gather3d-full] build_sphere3d(wall_h=0.03, cfl=0.5, "
+        f"block_size=16, use_blocks=False): {case.dom.ncells} cells, faces "
+        f"a dim {[int(f.shape[0]) for f in part.face_owner]}, accumulator "
+        f"width {part.acc_left[0].width}; build {case.build_seconds:.1f} s; "
+        f"Domain stages "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    case.dom.build_timings.items()))
+    steps = 10
+    P = case.march(case.P0, 2)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    P = case.march(P, steps)
+    e1.record()
+    e1.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    ms_step = e0.elapsed_time(e1) / steps
+    finite = bool(torch.isfinite(P).all())
+    log(f"[gather3d-full] {steps} steps: {ms_step:.3f} ms/step (CUDA "
+        f"events; host clock {host_ms:.3f}), "
+        f"{case.dom.ncells / (ms_step / 1e3):.4e} cell-updates/s, finite "
+        f"{finite}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{dict(K.launches)}; card: {smi}")
+    assert finite and not any(K.launches.values())
+    _, busy_ms, _ = profile_busy(lambda: case.march(P, 2), 2,
+                                 "gather3d-full", ms_step)
+    log(f"[gather3d-full] beside the block marches of this run: ms/step "
+        f"{ms_step:.3f} (device busy {busy_ms:.3f}) vs channel-split "
+        f"{blk3d['cs_ms_step']:.3f} and grid {blk3d['grid_ms_step']:.3f}")
 
 
 def interface_sides(bt):
@@ -463,7 +726,7 @@ def interface_sides(bt):
 
 def sphere_phases(dev):
     """Phases 3-7: the 3D sphere marches and their four kernels; returns
-    the rows of the kernels line."""
+    the rows of the kernels line and the two marches' ms a step."""
     from ibx_torch.cases import build_sphere3d
     from ibx_torch.ops import kernels as K
 
@@ -705,7 +968,7 @@ def sphere_phases(dev):
         f"each:")
     for label, fn in parts.items():
         log(f"  {label}: {time_ms(fn):.4f} ms")
-    return rows
+    return rows, dict(cs_ms_step=ms_step, grid_ms_step=g_ms_step)
 
 
 def main() -> int:
@@ -740,12 +1003,16 @@ def main() -> int:
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    rows = sphere_phases(dev)
+    rows, blk3d = sphere_phases(dev)
     # the sphere's tensors are no longer needed: free them before the 2D
     # phases, so that their peak memory is their own
     gc.collect()
     torch.cuda.empty_cache()
-    rae2822_phases(root, dev, smi)
+    blk = rae2822_phases(root, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gather_phases(root, dev, smi, blk)
+    gather3d_full(smi, blk3d)
 
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

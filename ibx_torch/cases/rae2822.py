@@ -1,11 +1,19 @@
-"""RAE2822 transonic airfoil case on the block march (counterpart of
-`ibx/cases/rae2822.py` with ``use_blocks=True``, the flagship workload).
+"""RAE2822 transonic airfoil case (counterpart of `ibx/cases/rae2822.py`,
+the flagship workload).
 
 Selig ``.dat`` ingest, feature-refined quadtree over a +/-25-chord box,
-ghost-cell immersed wall, 4-sided farfield family. The march keeps the
-state as a ``[B, bs, bs, 4]`` block grid between steps and runs
-`block_ops.rk2_step_grid` (or `euler_step_grid`) on torch ops: the 2D arm
-has no kernel in either package, so none is launched.
+ghost-cell immersed wall, 4-sided farfield family. Two marches share the
+build, as in the JAX package:
+
+* the block march (``use_blocks=True``, the default) keeps the state as a
+  ``[B, bs, bs, 4]`` block grid between steps and runs
+  `block_ops.rk2_step_grid` (or `euler_step_grid`);
+* the generic gather march (``use_blocks=False``) keeps the flat ``[N, 4]``
+  state and runs `solve.euler.rk2_step` on ``dom.partitions[0]`` with the
+  fused ghost BC of `Domain.fused_boundary`.
+
+Both run on torch ops: the 2D arm has no kernel in either package, so none
+is launched.
 """
 
 from __future__ import annotations
@@ -13,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -28,6 +36,7 @@ from ..ops.block_ops import (euler_step_grid, rk2_step_grid, to_blocks,
 from ..physics.bc import apply_flow_bc, flow_bc
 from ..physics.fluid import (Fluid, make_fluid, physicality_guard,
                              pressure_coefficient)
+from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
 from ..topology.domain import Domain
@@ -48,13 +57,22 @@ class Rae2822Case:
     scheme: str
     freeze_gradients: bool
     irs_eps: float
-    bt: BlockTables
-    bc: GhostBC
     bc_fns: dict
-    active3: torch.Tensor            # f32[B, bs, bs] 0/1 freeze mask
+    # block march (use_blocks=True, one partition); None on the gather march
+    bt: Optional[BlockTables]
+    bc: Optional[GhostBC]
+    active3: Optional[torch.Tensor]  # f32[B, bs, bs] 0/1 freeze mask
     fix3: Optional[torch.Tensor]     # f32[B, bs, bs, 1] robustness blend
+    # gather march: flat-state ghost BC and freeze mask; None on the block
+    # march
+    flat_bcs: Optional[Callable]
+    active: Optional[torch.Tensor]   # f32[N] 0/1 freeze mask
     P0: torch.Tensor                 # f32[N, 4] flat initial state
     build_seconds: float             # host build + table upload
+
+    @property
+    def blocks_on(self) -> bool:
+        return self.bt is not None
 
     def apply_bcs3(self, P3):
         """Ghost BCs on the block-grid state, in place."""
@@ -62,6 +80,8 @@ class Rae2822Case:
 
     def apply_bcs(self, P):
         """Ghost BCs on the flat [N, 4] state (a new tensor)."""
+        if not self.blocks_on:
+            return self.flat_bcs(P)
         return to_flat(self.bt, self.apply_bcs3(
             to_blocks(self.bt, P.clone())))
 
@@ -77,6 +97,15 @@ class Rae2822Case:
             fix3=self.fix3, freeze_gradients=self.freeze_gradients,
             irs_eps=self.irs_eps)
 
+    def _gather_step(self, P):
+        if self.dom.n_partitions != 1:
+            raise NotImplementedError(
+                "Rae2822Case: the sharded step over n_partitions > 1 is "
+                "not ported to ibx_torch yet (ROADMAP queue 1 item 8)")
+        return rk2_step(self.dom.partitions[0], self.fluid, P,
+                        self.flat_bcs, cfl=self.cfl,
+                        high_order=self.high_order, active=self.active)
+
     def _march(self, one, P, n_steps: int):
         P3 = to_blocks(self.bt, P)
         for _ in range(n_steps):
@@ -85,17 +114,27 @@ class Rae2822Case:
 
     def step(self, P):
         """One pseudo step on the flat state: (P, resnorm)."""
+        if not self.blocks_on:
+            return self._gather_step(P)
         P3, res = self._grid_step(to_blocks(self.bt, P))
         return to_flat(self.bt, P3), res
 
     def march(self, P, n_steps: int):
-        """``n_steps`` pseudo steps from the flat state; the state stays a
-        block grid in between."""
+        """``n_steps`` pseudo steps from the flat state; on the block
+        march the state stays a block grid in between."""
+        if not self.blocks_on:
+            for _ in range(n_steps):
+                P, _ = self._gather_step(P)
+            return P
         return self._march(self._grid_step, P, n_steps)
 
     def march_robust(self, P, n_steps: int):
         """First-order + Einfeldt RK2 march (``fix3 = 1`` everywhere): the
-        positivity-safe relaxation for rough start-up states."""
+        positivity-safe relaxation for rough start-up states. Block march
+        only, as in the JAX package."""
+        if not self.blocks_on:
+            raise ValueError("march_robust needs the block march "
+                             "(use_blocks=True, n_partitions=1)")
         ones3 = torch.ones_like(self.active3)[..., None]
 
         def one(P3):
@@ -132,21 +171,23 @@ def build_rae2822(
     device="cuda",
 ) -> Rae2822Case:
     """Build the airfoil case on ``device`` (the card unless asked
-    otherwise); same parameters as the JAX package's `build_rae2822`. Only
-    the single-device block path exists in the port (``use_blocks=True``,
-    ``n_partitions=1``), and its flagged wall deviations ``cutcell`` and
-    ``mirror_wall`` are not ported."""
+    otherwise); same parameters as the JAX package's `build_rae2822`.
+
+    ``use_blocks=False`` takes the generic gather march; ``n_partitions >
+    1`` builds the domain with its partitions and the family-by-family
+    ghost BC (`Domain.impose_bc`) as the JAX package does, but its step
+    raises: the sharded march is not ported. ``mirror_wall`` exists on the
+    gather march only (through `FusedBoundary`), and the flagged cut-cell
+    wall ``cutcell`` is not ported."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_rae2822: device is CUDA but no CUDA "
                            "device is available (pass device='cpu')")
-    if not use_blocks or n_partitions != 1:
-        raise ValueError("the port has only the single-device block path "
-                         "(use_blocks=True, n_partitions=1)")
-    if cutcell or mirror_wall:
+    blocks_on = use_blocks and n_partitions == 1
+    if cutcell or (mirror_wall and blocks_on):
         raise NotImplementedError(
-            "build_rae2822: cutcell and mirror_wall are not ported to "
-            "ibx_torch yet (ROADMAP queue 1 item 4)")
+            "build_rae2822: cutcell, and mirror_wall on the block march, "
+            "are not ported to ibx_torch yet (ROADMAP queue 1 item 4)")
     t0 = time.perf_counter()
     stl = merge_points(load_surface(RAE_DAT))
     features = DistanceField(feature_regions(stl, radius=0.05))
@@ -162,14 +203,15 @@ def build_rae2822(
 
     dom = Domain(
         msh,
+        n_partitions=n_partitions,
         hypercube_families=[
             ("farfield", [(0, False), (0, True), (1, False), (1, True)]),
         ],
         fluid_ghost_ratio=fluid_ghost_ratio,
         reflect_solid_images=reflect_solid_images,
         ghost_layer_ratio=ghost_layer_ratio,
+        device=device,
     )
-    dom.surfaces = {k: s.to(device) for k, s in dom.surfaces.items()}
 
     # freeze cells strictly inside the airfoil (their free evolution, the
     # reference's behavior, diverges at fine resolution and pollutes
@@ -193,6 +235,75 @@ def build_rae2822(
         "wall": lambda Pi, nrm: apply_flow_bc(wall_bc, Pi, nrm),
     }
 
+    P0 = np.tile(P_inf, (dom.ncells, 1))
+    P0[~solved_mask, 2:] = 0.0      # stagnant solid interior (frozen)
+    case = Rae2822Case(
+        dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, alpha=alpha_deg,
+        cfl=cfl, high_order=high_order, scheme=scheme,
+        freeze_gradients=freeze_gradients, irs_eps=irs_eps, bc_fns=bc_fns,
+        bt=None, bc=None, active3=None, fix3=None, flat_bcs=None,
+        active=None, P0=None, build_seconds=0.0)
+    if blocks_on:
+        _block_tables(case, stl, wall_h, te_fix_radius, wall_fix_cells,
+                      solved_mask, device)
+    else:
+        case.active = torch.as_tensor(solved_mask.astype(np.float32),
+                                      device=device)
+        case.flat_bcs = _flat_bcs(dom, stl, bc_fns, mirror_wall, device)
+        dom.partitions              # built here, inside build_seconds
+    case.P0 = case.apply_bcs(torch.as_tensor(P0, device=device))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    case.build_seconds = time.perf_counter() - t0
+    return case
+
+
+def _flat_bcs(dom: Domain, stl, bc_fns: dict, mirror_wall: bool,
+              device) -> Callable:
+    """The gather march's ghost BC on the flat state, a new tensor a call."""
+    if dom.n_partitions != 1:
+        # family by family through the partitions' localized boundaries
+        def apply_bcs_seq(P):
+            for name in FAMILIES:
+                P = dom.impose_bc(
+                    name, lambda b, Pi, fn=bc_fns[name]: fn(Pi, b.normals),
+                    P)
+            return P
+
+        return apply_bcs_seq
+
+    # fused BC path: both families through ONE image-interpolation gather
+    # and ONE ghost write-back. Families' ghost sets are disjoint (outer box
+    # vs wall).
+    fb = dom.fused_boundary(list(FAMILIES))
+    # mirror_wall (flagged deviation from the reference's eta-blend,
+    # src/ImmersedBoundary.jl:1220-1245): reflect the ghost normal velocity
+    # (-eta*u_n(image) instead of +eta*u_n(image)). Mirroring is gated off
+    # where the solid is thinner than ~2 local cell widths along the inward
+    # normal (TE sliver: reflecting BOTH surfaces into the wake destabilizes
+    # the startup transient).
+    mirror, scale = (), None
+    if mirror_wall:
+        ghost_ids = fb.ghost.cpu().numpy()
+        normals_g = fb.normals.cpu().numpy()
+        depth = 2.0 * dom.widths[ghost_ids].max(axis=1)
+        probe = dom.centers[ghost_ids] - normals_g * depth[:, None]
+        mirror = ("wall",)
+        scale = torch.as_tensor(
+            points_inside(stl, probe).astype(np.float32), device=device)
+
+    def apply_bcs(P):
+        return fb(P, bc_fns, guard=physicality_guard, mirror=mirror,
+                  mirror_scale=scale)
+
+    return apply_bcs
+
+
+def _block_tables(case: Rae2822Case, stl, wall_h: float,
+                  te_fix_radius: float, wall_fix_cells: float,
+                  solved_mask: np.ndarray, device) -> None:
+    """The block march's tables, freeze mask and robustness blend."""
+    dom = case.dom
     bt, bc = tables_from_numpy(build_block_tables(dom),
                                _collect_families(dom, FAMILIES), FAMILIES,
                                device)
@@ -204,13 +315,10 @@ def build_rae2822(
     def grid(a):
         return to_blocks(bt, torch.as_tensor(a, device=device)[:, None])
 
-    active3 = grid(solved_mask.astype(np.float32))[..., 0]
-
     # trailing-edge robustness blend: a resolved sharp TE expands to vacuum
     # under the reference's one-sided HLL speeds; within te_fix_radius of
     # the TE the scheme blends to first-order upwind with Einfeldt wave
     # speeds (full fix inside r, tapering to reference numerics at 2 r)
-    fix3 = None
     fix_f = np.zeros(dom.ncells, np.float32)
     if te_fix_radius > 0.0:
         te = stl.points[int(np.argmax(stl.points[:, 0]))]
@@ -225,22 +333,9 @@ def build_rae2822(
         d_w = np.asarray(DistanceField(stl)(dom.centers), np.float64)
         fw = np.clip((2.0 * band - d_w) / band, 0.0, 1.0)
         fix_f = np.maximum(fix_f, fw.astype(np.float32))
-    if fix_f.any():
-        fix3 = grid(fix_f)
-
-    P0 = np.tile(P_inf, (dom.ncells, 1))
-    P0[~solved_mask, 2:] = 0.0      # stagnant solid interior (frozen)
-    case = Rae2822Case(
-        dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, alpha=alpha_deg,
-        cfl=cfl, high_order=high_order, scheme=scheme,
-        freeze_gradients=freeze_gradients, irs_eps=irs_eps, bt=bt, bc=bc,
-        bc_fns=bc_fns, active3=active3, fix3=fix3, P0=None,
-        build_seconds=0.0)
-    case.P0 = case.apply_bcs(torch.as_tensor(P0, device=device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    case.build_seconds = time.perf_counter() - t0
-    return case
+    case.bt, case.bc = bt, bc
+    case.active3 = grid(solved_mask.astype(np.float32))[..., 0]
+    case.fix3 = grid(fix_f) if fix_f.any() else None
 
 
 def wall_cp(case: Rae2822Case, P) -> np.ndarray:

@@ -1,18 +1,21 @@
-"""3D STL-sphere Euler workload on the block march (counterpart of
-`ibx/cases/sphere3d.py` with ``use_blocks=True``).
+"""3D STL-sphere Euler workload (counterpart of `ibx/cases/sphere3d.py`).
 
 Octree mesh around a triangulated sphere, ghost-cell immersed boundary,
-6-sided farfield. Two marches share one build: the channel-split march
-(the default, the JAX package's ``IBX_CS=1`` branch), whose state stays
-``[B, C, bs, bs*bs]``, and the cell-major grid march (``grid=True``, its
-``IBX_CS=0`` branch) through `block_ops.rk2_step_grid`, whose state stays
-``[B, bs, bs, bs, C]``. Both run their kernels on the card.
+6-sided farfield. With ``use_blocks=True`` (the default) two block marches
+share one build: the channel-split march (the JAX package's ``IBX_CS=1``
+branch), whose state stays ``[B, C, bs, bs*bs]``, and the cell-major grid
+march (``grid=True``, its ``IBX_CS=0`` branch) through
+`block_ops.rk2_step_grid`, whose state stays ``[B, bs, bs, bs, C]``. Both
+run their kernels on the card. With ``use_blocks=False`` the case takes the
+generic gather march: `solve.euler.rk2_step` on ``dom.partitions[0]`` with
+the fused ghost BC, on torch ops.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,9 +29,10 @@ from ..ops.block_ops import rk2_step_grid, to_blocks, to_flat
 from ..ops.rhs_cs import cs_merge, cs_split, rk2_step_cs
 from ..physics.bc import apply_flow_bc, flow_bc
 from ..physics.fluid import Fluid, make_fluid, physicality_guard
+from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
-from ..topology.domain import Domain
+from ..topology.domain import Domain, FusedBoundary
 
 FAMILIES = ("farfield", "wall")
 
@@ -66,13 +70,23 @@ class Sphere3dCase:
     mach: float
     cfl: float
     high_order: bool
-    bt: BlockTables
-    bc: GhostBC
     bc_fns: dict
-    active_cs: torch.Tensor   # f32[B, 1, bs, bs*bs] 0/1 freeze mask
-    active3: torch.Tensor     # f32[B, bs, bs, bs], the same mask
+    # block marches (use_blocks=True); None on the gather march
+    bt: Optional[BlockTables]
+    bc: Optional[GhostBC]
+    active_cs: Optional[torch.Tensor]  # f32[B, 1, bs, bs*bs] freeze mask
+    active3: Optional[torch.Tensor]    # f32[B, bs, bs, bs], the same mask
+    # gather march (use_blocks=False); None on the block marches
+    fb: Optional[FusedBoundary]
+    active: Optional[torch.Tensor]     # f32[N], the same mask
     P0: torch.Tensor          # f32[N, 5] flat initial state (ghosts set)
     build_seconds: float      # host build + table upload
+
+    def apply_bcs(self, P):
+        """Ghost BCs on the flat [N, 5] state (a new tensor)."""
+        if self.bt is None:
+            return self.fb(P, self.bc_fns, guard=physicality_guard)
+        return self.from_cs(self.apply_bcs_cs(self.to_cs(P)))
 
     def apply_bcs_cs(self, Pc):
         """Ghost BCs on the cs state, in place."""
@@ -104,6 +118,16 @@ class Sphere3dCase:
 
     def _march_fns(self, grid: bool, freeze_gradients: bool, fold: bool):
         """(to state, one step, to flat) of the chosen march."""
+        if self.bt is None:
+            if grid or freeze_gradients or fold:
+                raise ValueError("grid, freeze_gradients and fold need the "
+                                 "block marches (use_blocks=True)")
+            part = self.dom.partitions[0]
+            return ((lambda P: P),
+                    (lambda P: rk2_step(
+                        part, self.fluid, P, self.apply_bcs, cfl=self.cfl,
+                        high_order=self.high_order, active=self.active)),
+                    (lambda P: P))
         if grid:
             return ((lambda P: to_blocks(self.bt, P)),
                     (lambda X: self.step_grid(
@@ -154,13 +178,11 @@ def build_sphere3d(
 ) -> Sphere3dCase:
     """Build the sphere case on ``device`` (the card unless asked
     otherwise); same parameters as the JAX package's `build_sphere3d`.
-    Only the block path exists in the port (``use_blocks=True``)."""
+    ``use_blocks=False`` takes the generic gather march."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_sphere3d: device is CUDA but no CUDA "
                            "device is available (pass device='cpu')")
-    if not use_blocks:
-        raise ValueError("the port has only the block path (use_blocks)")
     t0 = time.perf_counter()
     stl = merge_points(icosphere(h=surface_h))
     msh = build_mesh(
@@ -176,6 +198,7 @@ def build_sphere3d(
             [(0, False), (0, True), (1, False), (1, True),
              (2, False), (2, True)],
         )],
+        device=device,
     )
     inside = points_inside(stl, dom.centers)
 
@@ -191,21 +214,25 @@ def build_sphere3d(
         "wall": lambda Pi, nrm: apply_flow_bc(wall_bc, Pi, nrm),
     }
 
-    bt, bc = tables_from_numpy(build_block_tables(dom),
-                               _collect_families(dom, FAMILIES), FAMILIES,
-                               device)
     active = torch.as_tensor((~inside).astype(np.float32), device=device)
-    active3 = to_blocks(bt, active[:, None])[..., 0]
-    active_cs = cs_split(bt, active3[..., None])
-
     P0 = np.tile(P_inf, (dom.ncells, 1))
     P0[inside, 2:] = 0.0
     case = Sphere3dCase(
         dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, cfl=cfl,
-        high_order=high_order, bt=bt, bc=bc, bc_fns=bc_fns,
-        active_cs=active_cs, active3=active3, P0=None, build_seconds=0.0)
-    Pc0 = case.apply_bcs_cs(case.to_cs(torch.as_tensor(P0, device=device)))
-    case.P0 = case.from_cs(Pc0)
+        high_order=high_order, bc_fns=bc_fns, bt=None, bc=None,
+        active_cs=None, active3=None, fb=None, active=None, P0=None,
+        build_seconds=0.0)
+    if use_blocks:
+        case.bt, case.bc = tables_from_numpy(
+            build_block_tables(dom), _collect_families(dom, FAMILIES),
+            FAMILIES, device)
+        case.active3 = to_blocks(case.bt, active[:, None])[..., 0]
+        case.active_cs = cs_split(case.bt, case.active3[..., None])
+    else:
+        case.fb = dom.fused_boundary(list(FAMILIES))
+        case.active = active
+        dom.partitions              # built here, inside build_seconds
+    case.P0 = case.apply_bcs(torch.as_tensor(P0, device=device))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     case.build_seconds = time.perf_counter() - t0

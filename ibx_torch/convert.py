@@ -7,14 +7,24 @@ the block tables as numpy arrays (the fields of the JAX package's
 output) and the ghost-family dict of `_collect_families`, and returns the
 port's `BlockTables` and `GhostBC` on ``device``, for a 2D or a 3D mesh
 (the kernel tables of `BlockTables` exist at nd = 3 only).
+
+The gather path's tables come across the same way: `stencil_from_numpy`,
+`partition_from_numpy`, `boundary_from_numpy` and
+`fused_boundary_from_numpy` take the fields of the JAX package's `Stencil`,
+`Partition`, `Boundary` and `FusedBoundary` as numpy arrays (a `Stencil`
+field as its ``(idx, w)`` pair or a dict with those keys) and return the
+port's objects on ``device``, index tables as int64.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+from .ops.operators import Partition
+from .ops.stencil import Stencil, stencil_from_padded
 from .topology.blocked_bc import GhostBC
 from .topology.blocks import BlockTables
+from .topology.domain import Boundary, FusedBoundary, _f32, _i64
 
 
 def tables_from_numpy(bt_fields: Dict[str, object], families: dict,
@@ -23,3 +33,50 @@ def tables_from_numpy(bt_fields: Dict[str, object], families: dict,
     bt = BlockTables.from_numpy(bt_fields, device)
     bc = GhostBC.from_numpy(families, names, bt.block_size ** bt.nd, device)
     return bt, bc
+
+
+def stencil_from_numpy(st, device) -> Stencil:
+    """``st``: an ``(idx, w)`` pair or a dict with those keys."""
+    idx, w = (st["idx"], st["w"]) if isinstance(st, dict) else st
+    return stencil_from_padded(idx, w).to(device)
+
+
+def partition_from_numpy(f: Dict[str, object], device) -> Partition:
+    """``f``: the fields of a `Partition` by name; ``face_owner``,
+    ``face_neighbor``, ``acc_left`` and ``acc_right`` are per-dim
+    sequences."""
+    return Partition(
+        centers=_f32(f["centers"], device),
+        spacing=_f32(f["spacing"], device),
+        face_owner=tuple(_i64(a, device) for a in f["face_owner"]),
+        face_neighbor=tuple(_i64(a, device) for a in f["face_neighbor"]),
+        acc_left=tuple(stencil_from_numpy(s, device) for s in f["acc_left"]),
+        acc_right=tuple(stencil_from_numpy(s, device)
+                        for s in f["acc_right"]),
+        own_mask=_f32(f["own_mask"], device),
+        n_own=int(f["n_own"]), n_dom=int(f["n_dom"]), nd=int(f["nd"]),
+    )
+
+
+def boundary_from_numpy(f: Dict[str, object], device) -> Boundary:
+    """``f``: the fields of a `Boundary` by name."""
+    return Boundary(
+        ghost=_i64(f["ghost"], device),
+        interp=stencil_from_numpy(f["interp"], device),
+        n_ghost=int(f["n_ghost"]),
+        **{k: _f32(f[k], device) for k in (
+            "projections", "normals", "image_distances", "ghost_distances",
+            "eta", "valid")},
+    )
+
+
+def fused_boundary_from_numpy(f: Dict[str, object], device) -> FusedBoundary:
+    """``f``: the fields of a `FusedBoundary` by name."""
+    return FusedBoundary(
+        ghost=_i64(f["ghost"], device),
+        interp=stencil_from_numpy(f["interp"], device),
+        normals=_f32(f["normals"], device),
+        eta=_f32(f["eta"], device),
+        family=_i64(f["family"], device),
+        names=tuple(f["names"]),
+    )

@@ -1,15 +1,16 @@
 """Dense block-structured operators on the cell-major block grid
 ``[B, bs, ..., bs, C]`` (counterpart of `ibx/ops/block_ops.py`, nd = 2
-and 3): layout reshapes, the minmod limiter, the structured 2:1 interface
-corrections, the generic sparse leftover, `face_accumulate` (its default
-concat formulation), the block Euler RHS `euler_rhs_grid` with the
-``fix3`` robustness blend and, at nd = 3, its kernel route, implicit
-residual smoothing, and the grid marches `rk2_step_grid` /
-`euler_step_grid` with their flat wrappers. At nd = 2 every call takes
-the torch-op body: neither package has a kernel for it.
+and 3): layout reshapes, the structured 2:1 interface corrections, the
+generic sparse leftover, `face_accumulate` (its default concat
+formulation), the block Euler RHS `euler_rhs_grid` with the ``fix3``
+robustness blend, the ``viscous`` fluxes with an ``mu_t3`` field and, at
+nd = 3, its kernel route, implicit residual smoothing, and the grid
+marches `rk2_step_grid` / `euler_step_grid` with their flat wrappers. At
+nd = 2 every call takes the torch-op body: neither package has a kernel
+for it. The minmod limiter is `ibx_torch.ops.operators.minmod`.
 
 Not ported yet (ROADMAP queue 1 item 4): the ``IBX_PADDED_FACES``
-formulation and the ``viscous`` / ``mu_t3`` / ``cut3`` options."""
+formulation and the ``cut3`` option."""
 
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import torch
 
 from ..physics.fluid import (Fluid, primitive2state, speed_of_sound,
                              state2primitive_guarded)
-from ..physics.flux import inviscid_fluxes_hll
+from ..physics.flux import inviscid_fluxes_hll, viscous_fluxes
 from ..topology.blocks import BlockTables
+from .operators import minmod
 
 _NOT_PORTED = ("not ported to ibx_torch yet (ROADMAP queue 1 item 4)")
 
@@ -35,12 +37,6 @@ def to_blocks(bt: BlockTables, u_flat):
 def to_flat(bt: BlockTables, u3):
     """[B, bs, ..., bs, ...] -> [N, ...]."""
     return u3.reshape((bt.n_cells,) + tuple(u3.shape[1 + bt.nd:]))
-
-
-def minmod(u1, u2):
-    """Minmod limiter (reference ``src/ImmersedBoundary.jl:1099``)."""
-    return torch.minimum(u1.abs(), u2.abs()) * (
-        torch.sign(u1) + torch.sign(u2)) / 2
 
 
 def _expand_half(col, off, bs: int):
@@ -328,17 +324,27 @@ def face_a(with_dt: bool) -> Callable:
 
 
 def face_b(fluid: Fluid, high_order: bool, d: int,
-           has_fix: bool = False) -> Callable:
-    """Pass B's face function over parts (P, du_d, nu [, fix]): -HLL flux
-    of the MUSCL-reconstructed face with the JST blend. With ``has_fix``
-    a face takes the larger ``fix`` of its two cells: it scales the limited
-    slopes toward first order, forces the blend to limited upwinding and
-    widens the HLL wave speeds to the Einfeldt bounds."""
+           has_fix: bool = False, viscous: bool = False,
+           has_mut: bool = False) -> Callable:
+    """Pass B's face function over parts (P, du_d, nu [, fix] [, du_i for
+    i != d [, mu_t]]): -HLL flux of the MUSCL-reconstructed face with the
+    JST blend. With ``has_fix`` a face takes the larger ``fix`` of its two
+    cells: it scales the limited slopes toward first order, forces the
+    blend to limited upwinding and widens the HLL wave speeds to the
+    Einfeldt bounds. With ``viscous`` the Newtonian viscous and
+    heat-conduction flux is subtracted: P, the lateral gradients and
+    ``mu_t`` are interpolated to the face, the normal gradient is the
+    two-point difference (the orthogonality-corrected form,
+    ``src/ImmersedBoundary.jl:1051-1069``)."""
     def fn(Wo, Wn, ho, hn):
         Po, Pn = Wo[0], Wn[0]
         duo, dun = Wo[1], Wn[1]
         Do, Dn = Wo[2], Wn[2]
-        fo = torch.maximum(Wo[3], Wn[3]) if has_fix else None
+        k = 3
+        fo = None
+        if has_fix:
+            fo = torch.maximum(Wo[k], Wn[k])
+            k += 1
         down, dneigh = ho / 2, hn / 2
         grad_f = (Pn - Po) / (down + dneigh)
         slope_o = (2 * duo - grad_f) * down
@@ -356,7 +362,23 @@ def face_b(fluid: Fluid, high_order: bool, d: int,
             uf = uf + (duo * down - dun * dneigh) / 8
         PL = PL * D + (1.0 - D) * uf
         PR = PR * D + (1.0 - D) * uf
-        return -inviscid_fluxes_hll(fluid, PL, PR, d, fix=fo)
+        F = inviscid_fluxes_hll(fluid, PL, PR, d, fix=fo)
+        if viscous:
+            def at_f(a_o, a_n):
+                return (a_o * dneigh + a_n * down) / (down + dneigh)
+
+            Pf = at_f(Po, Pn)
+            gf = []
+            kk = k
+            for i in range(Po.shape[-1] - 2):
+                if i == d:
+                    gf.append(grad_f)
+                else:
+                    gf.append(at_f(Wo[kk], Wn[kk]))
+                    kk += 1
+            mu_t_f = at_f(Wo[kk], Wn[kk])[..., 0] if has_mut else 0.0
+            F = F - viscous_fluxes(fluid, Pf, gf, d, mu_t=mu_t_f)
+        return -F      # accumulate R += -divergence(F) directly
 
     return fn
 
@@ -380,14 +402,20 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     `rhs_cs.euler_rhs_grid_pallas` (on the CPU the kernels' plain versions
     run); False forces the torch-op body, which also serves the ineligible
     calls (nd = 2, ``frozen``, ``fix3``, a sparse leftover). ``fold``
-    reaches the kernel route's plain-RHS call. ``viscous``, ``mu_t3`` and
-    ``cut3`` raise NotImplementedError.
+    reaches the kernel route's plain-RHS call.
+
+    ``viscous=True`` subtracts Newtonian viscous + heat-conduction face
+    fluxes (reference ``src/cfd.jl:664-736``) using the pass-A cell
+    gradients with the orthogonality-corrected normal component, the dense
+    counterpart of `ibx_torch.solve.euler.euler_rhs(viscous=True)`;
+    ``mu_t3`` ([B, bs.., 1]) is an optional eddy-viscosity field. Both take
+    the torch-op body. ``cut3`` raises NotImplementedError.
     """
-    if viscous or mu_t3 is not None or cut3 is not None:
-        raise NotImplementedError(
-            "euler_rhs_grid: viscous, mu_t3 and cut3 are " + _NOT_PORTED)
+    if cut3 is not None:
+        raise NotImplementedError("euler_rhs_grid: cut3 is " + _NOT_PORTED)
     from .rhs_cs import euler_rhs_grid_pallas, pallas_eligible
-    if kernels and pallas_eligible(bt, frozen=frozen, fix3=fix3):
+    if kernels and pallas_eligible(bt, viscous=viscous, frozen=frozen,
+                                   fix3=fix3, mu_t3=mu_t3):
         return euler_rhs_grid_pallas(bt, fluid, P3, high_order=high_order,
                                      with_dt=with_dt, cfl=cfl, fold=fold)
     nd = bt.nd
@@ -416,12 +444,18 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
             dt_bound = dt_bound + outA[..., ncomp + 2]
 
     has_fix = fix3 is not None
+    has_mut = viscous and mu_t3 is not None
     R3 = torch.zeros_like(P3)
     for d in range(nd):
         Vparts = (P3, du_grids[d], nu3) + ((fix3,) if has_fix else ())
-        R3 = R3 + face_accumulate(bt, d, Vparts,
-                                  face_b(fluid, high_order, d, has_fix),
-                                  ncomp, [1.0] * ncomp)
+        if viscous:
+            Vparts += tuple(du_grids[i] for i in range(nd) if i != d)
+            if has_mut:
+                Vparts += (mu_t3,)
+        R3 = R3 + face_accumulate(
+            bt, d, Vparts,
+            face_b(fluid, high_order, d, has_fix, viscous, has_mut),
+            ncomp, [1.0] * ncomp)
     if with_dt:
         return R3, cfl / dt_bound, (du_grids, nu3)
     return R3

@@ -1,1 +1,1 @@
-"""Gas model, HLL flux and flow BC in PyTorch (float32)."""
+"""Gas model, inviscid and viscous fluxes and flow BC in PyTorch (float32)."""

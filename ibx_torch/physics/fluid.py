@@ -2,13 +2,15 @@
 
 Counterpart of `ibx/physics/fluid.py` (reference ``src/cfd.jl:14-151``),
 with the same deliberately replicated quirks: R defaults to 283.0
-(nonstandard) and temperatures clamp at 10 K. Everything is float32;
-components live on the last axis.
+(nonstandard), the Sutherland-style viscosity uses exponent 2/3 (the
+classic law uses 3/2), and temperatures clamp at 10 K. Everything is
+float32; components live on the last axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -16,11 +18,18 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Fluid:
-    """Ideal-gas constants, held as the float32 values the JAX package
-    computes with (Python floats, exact in float32)."""
+    """Ideal gas with polynomial heat conductivity and Sutherland-style
+    viscosity (reference ``src/cfd.jl:14-53``). The constants are held as
+    the float32 values the JAX package computes with (Python floats, exact
+    in float32)."""
 
     R: float
     gamma: float
+    k: Tuple[float, ...] = (float(np.float32(0.00646)),
+                            float(np.float32(6.468e-5)))
+    mu_ref: float = float(np.float32(1.716e-5))
+    T_ref: float = float(np.float32(273.15))
+    S: float = float(np.float32(110.4))
 
     @property
     def gR(self) -> float:
@@ -38,14 +47,53 @@ class Fluid:
         return float(np.float32(self.R) / np.float32(self.gm1))
 
 
-def make_fluid(R: float = 283.0, gamma: float = 1.4) -> Fluid:
+    @property
+    def TS(self) -> float:
+        """T_ref + S, rounded to float32 once."""
+        return float(np.float32(self.T_ref) + np.float32(self.S))
+
+
+def make_fluid(
+    R: float = 283.0,
+    gamma: float = 1.4,
+    k: Union[float, Sequence[float]] = (0.00646, 6.468e-5),
+    mu_ref: float = 1.716e-5,
+    T_ref: float = 273.15,
+    S: float = 110.4,
+) -> Fluid:
     """Fluid with the reference's air defaults (``src/cfd.jl:40-53``)."""
-    return Fluid(R=float(np.float32(R)), gamma=float(np.float32(gamma)))
+    if np.isscalar(k):
+        k = (k,)
+
+    def f32(x):
+        return float(np.float32(x))
+
+    return Fluid(R=f32(R), gamma=f32(gamma), k=tuple(f32(x) for x in k),
+                 mu_ref=f32(mu_ref), T_ref=f32(T_ref), S=f32(S))
 
 
 def speed_of_sound(fluid: Fluid, T):
     """a = sqrt(gamma R T), T clamped (reference ``src/cfd.jl:62-64``)."""
     return torch.sqrt(fluid.gR * T.clamp(min=10.0))
+
+
+def dynamic_viscosity(fluid: Fluid, T):
+    """mu(T) with the reference's 2/3 exponent (``src/cfd.jl:71-77``)."""
+    T = T.clamp(min=10.0)
+    return (
+        fluid.mu_ref
+        * (T / fluid.T_ref) ** (2.0 / 3.0)
+        * fluid.TS
+        / (T + fluid.S)
+    )
+
+
+def heat_conductivity(fluid: Fluid, T):
+    """Polynomial k(T) (reference ``src/cfd.jl:84-90``)."""
+    k = torch.zeros_like(T)
+    for i, ki in enumerate(fluid.k):
+        k = k + ki * T ** i
+    return k
 
 
 def primitive2state(fluid: Fluid, P):
@@ -58,6 +106,17 @@ def primitive2state(fluid: Fluid, P):
     E = rho * (fluid.cv * T + kin)
     return torch.cat([rho[..., None], E[..., None], rho[..., None] * u],
                      dim=-1)
+
+
+def state2primitive(fluid: Fluid, Q):
+    """[rho E rho*u ...] -> [p T u ...] (reference ``src/cfd.jl:137-151``)."""
+    rho = Q[..., 0]
+    E = Q[..., 1]
+    u = Q[..., 2:] / rho[..., None]
+    kin = (u ** 2).sum(dim=-1) / 2
+    p = fluid.gm1 * (E - rho * kin)
+    T = (p / (rho * fluid.R)).clamp(min=10.0)
+    return torch.cat([p[..., None], T[..., None], u], dim=-1)
 
 
 def state2primitive_guarded(fluid: Fluid, Q, p_floor=1.0, u_max=3000.0,

@@ -21,6 +21,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .domain import blend_families
+
 
 def _collect_families(dom, names: Sequence[str]) -> dict:
     """Claimed-dedup (last listed family wins, matching the sequential
@@ -114,12 +116,8 @@ class GhostBC:
         for k in range(self.w.shape[1]):
             t = read(self.src_b[:, k], self.src_w[:, k]) * self.w[:, k:k + 1]
             Pi = t if Pi is None else Pi + t
-        r = None
-        for i, name in enumerate(self.names):
-            ri = fns[name](Pi, self.normals)
-            r = ri if r is None else torch.where(
-                (self.family == i)[:, None], ri, r)
-        g = self.eta * Pi + (1.0 - self.eta) * r
+        g = blend_families(Pi, self.normals, self.eta, self.family,
+                           self.names, fns)
         return g if guard is None else guard(g)
 
     def apply_cs(self, Pc, fns: Dict[str, Callable], *,

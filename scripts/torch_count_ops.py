@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Count the torch ops one RK2 step of the port dispatches, on the CPU.
+
+    python3 scripts/torch_count_ops.py
+
+Builds RAE2822 at wall_h=8e-2 (16,768 cells) and the bs=4 sphere (18,432
+cells) with ``device="cpu"`` and runs one `case.step` of the generic gather
+march (``use_blocks=False``) and of the block march under a
+`TorchDispatchMode`: every dispatched op, those that are views (no device
+launch), and the rest. The op count does not depend on the mesh size, so it
+is the host's work a step at any size. It also counts the row gathers
+(`ibx_torch.ops.stencil.take_rows`) whose rows are a multiple of 16 bytes
+wide: on a CUDA tensor each of those dispatches 7 more ops (the flat index
+arithmetic: 3 launches and 4 views) than the `index_select` counted here.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+VIEWS = ("view", "reshape", "select.int", "slice", "unsqueeze", "expand",
+         "alias", "squeeze", "t.default", "permute", "detach")
+
+
+class Count(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = self.views = self.wide_gathers = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        name = str(func)
+        if any(v in name for v in VIEWS):
+            self.views += 1
+        if "index_select" in name and args[0].dim() > 1 and \
+                (args[0][0].numel() * args[0].element_size()) % 16 == 0:
+            self.wide_gathers += 1
+        return func(*args, **(kwargs or {}))
+
+
+def main() -> int:
+    from ibx_torch.cases import build_rae2822, build_sphere3d
+
+    torch.set_num_threads(2)
+    small = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7, device="cpu")
+    sphere = dict(wall_h=0.25, block_size=4, device="cpu")
+    cases = {
+        "RAE2822 gather march (use_blocks=False)":
+            (build_rae2822(use_blocks=False, **small), {}),
+        "RAE2822 block march": (build_rae2822(**small), {}),
+        "sphere gather march (use_blocks=False)":
+            (build_sphere3d(use_blocks=False, **sphere), {}),
+        "sphere channel-split march": (build_sphere3d(**sphere), {}),
+        "sphere grid march": (build_sphere3d(**sphere), dict(grid=True)),
+    }
+    for label, (case, kw) in cases.items():
+        with Count() as c:
+            case.step(case.P0, **kw)
+        print(f"{label}: {c.n} dispatched ops a step, {c.views} views, "
+              f"{c.n - c.views} launches; {c.wide_gathers} row gathers of "
+              f"rows a multiple of 16 bytes wide")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

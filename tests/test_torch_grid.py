@@ -145,19 +145,34 @@ def test_march5_grid_matches_case_march(cases):
                                     "cs_freeze"])
 def test_unported_options_raise(setup, cases, option):
     """Options of the JAX grid path that the port does not have yet raise
-    instead of being ignored."""
-    bt, tb, P3 = setup
-    fl, P3 = make_fluid(), t(P3)
+    instead of being ignored (``cut3``; ``freeze_gradients`` on the
+    channel-split march). ``viscous`` and ``mu_t3`` are ported: they take
+    the torch-op body (no kernel launch) and match the JAX grid path at
+    2e-4 per channel."""
+    bt, tb, P3n = setup
+    fl, P3 = make_fluid(), t(P3n)
     one = torch.ones(P3.shape[:-1] + (1,))
     if option == "cs_freeze":
         pt = cases[1]
         with pytest.raises(ValueError, match="grid"):
             pt.step(pt.P0, freeze_gradients=True)
-    else:
-        kw = {"viscous": True, "mu_t3": one,
-              "cut3": {"owner": ()}}[option]
+    elif option == "cut3":
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            bo.euler_rhs_grid(tb, fl, P3, **{option: kw})
+            bo.euler_rhs_grid(tb, fl, P3, cut3={"owner": ()})
+    else:
+        kj = dict(viscous=True)
+        kt = dict(viscous=True)
+        if option == "mu_t3":
+            kj["mu_t3"] = jnp.asarray(one.numpy() * 1e-4)
+            kt["mu_t3"] = one * 1e-4
+        ref = np.asarray(jbo.euler_rhs_grid(bt, jx_make_fluid(),
+                                            jnp.asarray(P3n), **kj))
+        K.reset_launches()
+        out = bo.euler_rhs_grid(tb, fl, P3, **kt).numpy()
+        assert not any(K.launches.values())
+        assert chan_err(ref, out, axis=-1, floor=1e-3) < 2e-4
+        plain = bo.euler_rhs_grid(tb, fl, P3, kernels=False).numpy()
+        assert np.abs(out - plain).max() > 0
 
 
 @pytest.mark.parametrize("option", ["fix3", "irs_eps"])

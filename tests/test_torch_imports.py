@@ -42,14 +42,16 @@ def test_no_jax_or_ibx_imports():
 
 
 def test_scan_covers_the_2d_modules():
-    """The import scan reaches the modules of the 2D arm, and none of them
-    names a file under the JAX package."""
+    """The import scan reaches the modules of the 2D arm and of the gather
+    path, and none of them names a file under the JAX package."""
     names = {str(f.relative_to(ROOT)) for f in _port_files()}
     want = {"ibx_torch/cases/rae2822.py", "ibx_torch/cases/__init__.py",
             "ibx_torch/geometry/stereolitography.py",
             "ibx_torch/geometry/__init__.py",
             "ibx_torch/topology/domain.py", "ibx_torch/topology/blocks.py",
             "ibx_torch/ops/block_ops.py", "ibx_torch/physics/flux.py",
+            "ibx_torch/ops/stencil.py", "ibx_torch/ops/operators.py",
+            "ibx_torch/solve/euler.py", "ibx_torch/solve/__init__.py",
             "ibx_torch/convert.py", "chip_smoke.py"}
     assert want <= names, want - names
     for f in _port_files():
@@ -70,6 +72,26 @@ def test_build_without_device_needs_cuda(monkeypatch):
         build_sphere3d(wall_h=0.25, block_size=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_rae2822(wall_h=8e-2, feature_h=4e-2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_rae2822(wall_h=8e-2, feature_h=4e-2, use_blocks=False)
+
+
+def test_domain_without_device_needs_cuda(monkeypatch):
+    """`Domain` is an entry point of the operator API: it places its tables
+    on the card unless asked otherwise, and says so when there is none."""
+    from ibx_torch.geometry import Mesh
+    from ibx_torch.topology.domain import Domain
+
+    msh = Mesh(origin=np.zeros(2, np.float32), widths=np.ones(2, np.float32),
+               block_size=4, block_origins=np.zeros((1, 2), np.float32),
+               block_widths=np.ones((1, 2), np.float32), distance_fields={})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Domain(msh)
+    dom = Domain(msh, device="cpu")
+    assert dom.device.type == "cpu" and len(dom) == 16
 
 
 def test_cpu_tensors_launch_nothing():

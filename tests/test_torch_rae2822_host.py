@@ -142,7 +142,7 @@ def test_domain_keywords_equal(cases, keyword):
           "solve_inside_cells": dict(solve_inside_cells=inside)}[keyword]
     hf = [("farfield", [(0, False), (0, True), (1, False), (1, True)])]
     jdom = JxDomain(jx.dom.mesh, hypercube_families=hf, **kw)
-    pdom = Domain(pt.dom.mesh, hypercube_families=hf, **kw)
+    pdom = Domain(pt.dom.mesh, hypercube_families=hf, device="cpu", **kw)
     fams = _families_equal(jdom, pdom)
     base = _collect_families(pt.dom, FAMILIES)
     if keyword == "reflect_solid_images":

@@ -1,7 +1,8 @@
 """Port parity on the bs=4 sphere case: the ghost BC, the initial state,
 one RK2 step and a 5-step march of `ibx_torch.cases.build_sphere3d`
 (device="cpu", kernels on their plain versions) against the JAX package's
-case."""
+case, and the gather branch (``use_blocks=False``) against the JAX
+package's and against the port's grid march."""
 
 import numpy as np
 import pytest
@@ -96,3 +97,33 @@ def test_march5_matches_case_march(cases):
     out = pt.march(t(np.asarray(jx.P0)), 5).numpy()
     assert np.isfinite(out).all()
     assert chan_err(ref, out) < 1e-3, chan_err(ref, out)
+
+
+def test_gather_case_matches(cases):
+    """``use_blocks=False`` at nd = 3: initial state 2e-5, one step from a
+    perturbed state 1e-4 with its resnorm, 3 steps of `case.march` 1e-3
+    against the JAX gather case, and under 1e-3 against the port's own grid
+    march; no kernel launch is counted and the block-only options raise."""
+    from ibx_torch.ops import kernels as K
+
+    _, blk = cases
+    jx = jx_build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False)
+    pt = build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False,
+                        device="cpu")
+    assert pt.bt is None and jx.grid is None
+    assert pt.dom.partitions[0].acc_left[2].width == 4
+    assert chan_err(np.asarray(jx.P0), pt.P0.numpy()) < 2e-5
+    P = _perturbed_flat(jx)
+    ref, res_ref = jx.step(jnp.asarray(P))
+    K.reset_launches()
+    out, res = pt.step(t(P))
+    assert chan_err(ref, out.numpy()) < 1e-4, chan_err(ref, out.numpy())
+    assert abs(float(res) - float(res_ref)) <= 1e-4 * abs(float(res_ref))
+    ref = np.asarray(jx.march(jx.P0, 3))
+    out = pt.march(t(np.asarray(jx.P0)), 3).numpy()
+    assert chan_err(ref, out) < 1e-3, chan_err(ref, out)
+    assert not any(K.launches.values())
+    grid = blk.march(t(np.asarray(jx.P0)), 3, grid=True).numpy()
+    assert chan_err(grid, out) < 1e-3, chan_err(grid, out)
+    with pytest.raises(ValueError, match="block marches"):
+        pt.step(pt.P0, grid=True)
