@@ -68,6 +68,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      cfl=0.5, block_size=16, use_blocks=False)` (5,308,416 cells), 2
      warm-up steps, then 10 steps timed, the counters 0, and the card's
      busy time a step, printed beside the block marches of phases 5 and 6;
+ 17. RANS step parity: `build_rae2822_rans(wall_h=8e-2, feature_h=4e-2,
+     block_size=8)` on the card and on the CPU, one `case.step` from a
+     perturbed (P, Rt) on the block march and on the gather march;
+ 18. RANS block vs gather on the card at wall_h=4e-2 (67,072 cells): the
+     initial states and 5 steps of each march;
+ 19. the reference's physical checks, there marched on the CPU: the RANS
+     airfoil at wall_h=2e-2 (87,040 cells), 400 steps (finite, eddy
+     viscosity developed, stagnation and suction Cp, mid-chord Cf) with the
+     residual of step 302 below that of step 1; the flat plate at
+     wall_h=1e-2, 300 steps, Cf within 0.2-5x Prandtl; the low-y+ plate
+     (wall_h=4e-3), 800 steps, no pressure collapse;
+ 20. RANS at the cases' default sizes: `build_rae2822_rans()` (242,176
+     cells) and `build_flat_plate()` (105,984 cells), each on the block and
+     the gather march, 2 warm-up steps then 200 steps timed with CUDA
+     events and the host clock, the card's busy time a step from
+     `torch.profiler`, build s and peak memory, Cl/Cd and mid-chord Cf for
+     the airfoil, and the four kernel counters 0 (no kernel lies on RANS);
 then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -125,6 +142,21 @@ GVB_DT_RTOL = 1e-4
 GVB_STEPS_TOL = 1e-3
 # one gather step, card vs CPU: the same torch ops on both devices
 GATHER_STEP_TOL = 1e-5
+# RANS (phases 17-20): the parity fixture of tests/test_torch_rans.py, the
+# block-vs-gather fixture and the physical-check sizes of tests/test_rans.py
+# and tests/test_flat_plate.py, and the cases' default sizes
+RANS_SMALL = dict(wall_h=8e-2, feature_h=4e-2, block_size=8)
+RANS_RT_TOL = 1e-3       # Rt after one step, of max |Rt|
+RANS_GVB = dict(wall_h=4e-2, feature_h=2e-2)
+RANS_GVB_STEPS = 5
+RANS_REF = dict(wall_h=2e-2, feature_h=1e-2, reynolds=6.5e6, cfl=0.5)
+RANS_REF_CELLS = 87_040
+PLATE_REF = dict(wall_h=1e-2, length=1.25, height=0.5, reynolds=6e5)
+PLATE_LOWYP = dict(wall_h=4e-3, reynolds=6e5, length=1.25, height=0.5,
+                   mach=0.2, cfl=0.5)
+RANS_CELLS = 242_176
+PLATE_CELLS = 105_984
+RANS_STEPS = 200
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
@@ -719,6 +751,188 @@ def gather3d_full(smi, blk3d):
         f"{blk3d['cs_ms_step']:.3f} and grid {blk3d['grid_ms_step']:.3f}")
 
 
+def rans_state(case, seed=0):
+    """(P, Rt) on the case's device: the initial state with a smooth
+    perturbation, noise in u and v, and an eddy viscosity of 1 to 20 times
+    the freestream seed (the state of tests/test_torch_rans.py)."""
+    rng = np.random.default_rng(seed)
+    P = case.P0.detach().cpu().numpy().copy()
+    x, y = case.dom.centers[:, 0], case.dom.centers[:, 1]
+    P[:, 0] *= 1.0 + 0.05 * np.sin(x) * np.cos(y)
+    P[:, 1] *= 1.0 + 0.02 * np.cos(x)
+    P[:, 2] += 20.0 * np.sin(y) + 5.0 * rng.standard_normal(P.shape[0])
+    P[:, 3] += 10.0 * np.cos(x) + 5.0 * rng.standard_normal(P.shape[0])
+    Rt = case.Rt_inf * (1.0 + 19.0 * rng.uniform(size=P.shape[0]))
+    dev = case.P0.device
+    return (torch.as_tensor(P.astype(np.float32), device=dev),
+            torch.as_tensor(Rt.astype(np.float32), device=dev))
+
+
+def rel_max(ref, out):
+    """Max |out - ref| over max |ref|."""
+    return max_abs(ref, out) / float(ref.double().abs().max())
+
+
+def rans_phases(dev, smi):
+    """Phases 17-20: RANS on both marches. No kernel lies on either (the
+    viscous RHS takes the torch-op body, as it takes plain XLA in the JAX
+    package), so they add no row to the kernels line; the four counters
+    are asserted to stay 0."""
+    from ibx_torch.cases import (build_flat_plate, build_rae2822_rans,
+                                 cf_prandtl, force_coefficients,
+                                 skin_friction_profile, wall_cp,
+                                 wall_skin_friction)
+    from ibx_torch.ops import kernels as K
+
+    zero = dict.fromkeys(K.launches, 0)
+
+    # 17. one RANS step, card vs CPU, on each march
+    for ub, tol in ((True, STEP_TOL), (False, GATHER_STEP_TOL)):
+        cg = build_rae2822_rans(use_blocks=ub, device=dev, **RANS_SMALL)
+        cc = build_rae2822_rans(use_blocks=ub, device="cpu", **RANS_SMALL)
+        P, Rt = rans_state(cg)
+        K.reset_launches()
+        Pg, Rg, rg = cg.step(P, Rt)
+        assert dict(K.launches) == zero, K.launches
+        Pc, Rc, rc = cc.step(P.cpu(), Rt.cpu())
+        log(f"[rans-step] RANS RAE2822 {RANS_SMALL} ({cg.dom.ncells} "
+            f"cells), use_blocks={ub}, one step, card vs CPU")
+        check("state (per channel)", chan_err(Pc, Pg.cpu()), tol)
+        check("Rt (of max |Rt|)", rel_max(Rc, Rg.cpu()), RANS_RT_TOL)
+        check("resnorm (relative)",
+              abs(float(rg) - float(rc)) / abs(float(rc)), RES_TOL)
+    del cg, cc
+
+    # 18. block vs gather on the card (tests/test_rans.py's fixture)
+    cb = build_rae2822_rans(device=dev, **RANS_GVB)
+    cg = build_rae2822_rans(use_blocks=False, device=dev, **RANS_GVB)
+    log(f"[rans-gvb] RANS RAE2822 {RANS_GVB} ({cb.dom.ncells} cells), "
+        f"block vs gather march on the card, {RANS_GVB_STEPS} steps")
+    check("P0 (per channel)", chan_err(cg.P0, cb.P0), 2e-5)
+    Pb, Rb, Pg, Rg = cb.P0, cb.Rt0, cg.P0, cg.Rt0
+    K.reset_launches()
+    for _ in range(RANS_GVB_STEPS):
+        Pb, Rb, _ = cb.step(Pb, Rb)
+        Pg, Rg, _ = cg.step(Pg, Rg)
+    assert dict(K.launches) == zero, K.launches
+    check("P (per channel)", chan_err(Pg, Pb), 2e-4)
+    check("Rt (of max |Rt|)", rel_max(Rg, Rb), 2e-3)
+    del cb, cg
+
+    # 19. the reference's physical checks (tests/test_rans.py and
+    # tests/test_flat_plate.py, marched there on the CPU)
+    t0 = time.perf_counter()
+    case = build_rae2822_rans(device=dev, **RANS_REF)
+    P, Rt, r0 = case.step(case.P0, case.Rt0)
+    P, Rt = case.march(P, Rt, 300)
+    P, Rt, r1 = case.step(P, Rt)
+    P, Rt = case.march(P, Rt, 98)          # 400 steps from P0 in all
+    finite = bool(torch.isfinite(P).all() and torch.isfinite(Rt).all())
+    cp = wall_cp(case, P)
+    cf = wall_skin_friction(case, P)
+    xw = case.dom.surfaces["wall"].points[:, 0]
+    cf_mid = float(cf[(xw > 0.2) & (xw < 0.8)].mean())
+    log(f"[rans-ref] build_rae2822_rans({RANS_REF}) ({case.dom.ncells} "
+        f"cells): resnorm {float(r0):.6e} at step 1, {float(r1):.6e} at "
+        f"step 302; after 400 steps finite {finite}, Rt max "
+        f"{float(Rt.max()) / case.Rt_inf:.2f} Rt_inf, Rt min "
+        f"{float(Rt.min()):.3e}, wall Cp {cp.min():.4f} to {cp.max():.4f}, "
+        f"mid-chord mean Cf {cf_mid:.5e} "
+        f"({time.perf_counter() - t0:.1f} s with the build)")
+    assert case.dom.ncells == RANS_REF_CELLS, case.dom.ncells
+    assert finite and float(r1) < float(r0)
+    assert float(Rt.max()) > 10 * case.Rt_inf and float(Rt.min()) >= 0.0
+    assert cp.max() > 0.6 and cp.min() < -0.4
+    assert np.isfinite(cf).all() and 1e-4 < cf_mid < 5e-2
+    del case
+    t0 = time.perf_counter()
+    plate = build_flat_plate(device=dev, **PLATE_REF)
+    P, Rt = plate.march(plate.P0, plate.Rt0, 300)
+    x, cf = skin_friction_profile(plate, P)
+    sel = (x > 0.3) & (x < 1.0)
+    ratio = cf[sel] / cf_prandtl(plate.reynolds * x[sel])
+    log(f"[rans-ref] build_flat_plate({PLATE_REF}) ({plate.dom.ncells} "
+        f"cells), 300 steps: Cf / Prandtl {ratio.min():.3f} to "
+        f"{ratio.max():.3f} at {int(sel.sum())} stations "
+        f"({time.perf_counter() - t0:.1f} s with the build)")
+    assert bool(torch.isfinite(P).all() and torch.isfinite(Rt).all())
+    assert sel.sum() > 10 and (ratio > 0.2).all() and (ratio < 5.0).all()
+    t0 = time.perf_counter()
+    plate = build_flat_plate(device=dev, **PLATE_LOWYP)
+    P, Rt = plate.march(plate.P0, plate.Rt0, 800)
+    finite = bool(torch.isfinite(P).all() and torch.isfinite(Rt).all())
+    log(f"[rans-ref] build_flat_plate({PLATE_LOWYP}) ({plate.dom.ncells} "
+        f"cells), 800 steps: finite {finite}, min p "
+        f"{float(P[:, 0].min()):.1f}, max |u| "
+        f"{float(P[:, 2:].abs().max()):.2f} "
+        f"({time.perf_counter() - t0:.1f} s with the build)")
+    assert finite and float(P[:, 0].min()) > 5e4
+    assert float(P[:, 2:].abs().max()) < 200
+    del plate, P, Rt
+
+    # 20. both cases at their default sizes on both marches
+    out = {}
+    for label, build, cells in (
+            ("RAE2822 RANS", build_rae2822_rans, RANS_CELLS),
+            ("flat plate", build_flat_plate, PLATE_CELLS)):
+        for ub in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            case = build(use_blocks=ub)
+            tag = f"{label}, {'block' if ub else 'gather'} march"
+            assert case.dom.ncells == cells and case.P0.device.type == "cuda"
+            P, Rt = case.march(case.P0, case.Rt0, 2)
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            K.reset_launches()
+            t0 = time.perf_counter()
+            e0.record()
+            P, Rt = case.march(P, Rt, RANS_STEPS)
+            e1.record()
+            e1.synchronize()
+            host_ms = (time.perf_counter() - t0) / RANS_STEPS * 1e3
+            ms_step = e0.elapsed_time(e1) / RANS_STEPS
+            launches = dict(K.launches)
+            _, _, res = case.step(P, Rt)
+            finite = bool(torch.isfinite(P).all() and torch.isfinite(Rt).all())
+            peak = torch.cuda.max_memory_allocated() - base
+            log(f"[rans-full] {tag}: {case.dom.ncells} cells, build "
+                f"{case.build_seconds:.1f} s; {RANS_STEPS} steps "
+                f"{ms_step:.3f} ms/step (CUDA events; host clock "
+                f"{host_ms:.3f}), {case.dom.ncells / (ms_step / 1e3):.4e} "
+                f"cell-updates/s, resnorm {float(res):.6e}, finite {finite}, "
+                f"Rt max {float(Rt.max()) / case.Rt_inf:.2f} Rt_inf, peak "
+                f"memory {peak / 2**30:.3f} GiB above what was held; "
+                f"launches {launches}")
+            assert finite, f"non-finite state: {tag}"
+            assert launches == zero, launches
+            # 2 traced steps: tracing makes a block step 20 times slower
+            acts, busy_ms, _ = profile_busy(
+                lambda: case.march(P, Rt, 2), 2, "rans-full", ms_step)
+            row = dict(ms_step=ms_step, host_ms=host_ms, busy_ms=busy_ms,
+                       activities=acts, build_s=case.build_seconds,
+                       peak_gib=peak / 2**30)
+            if label == "RAE2822 RANS":
+                cl, cd = force_coefficients(case, P)
+                cf = wall_skin_friction(case, P)
+                xw = case.dom.surfaces["wall"].points[:, 0]
+                row.update(cl=cl, cd=cd, cf_mid=float(
+                    cf[(xw > 0.2) & (xw < 0.8)].mean()))
+                log(f"[rans-full] {tag}: Cl {cl:.5f}, Cd {cd:.5f}, "
+                    f"mid-chord mean Cf {row['cf_mid']:.5e} after "
+                    f"{RANS_STEPS + 2} steps from the freestream")
+            out[tag] = row
+            del case, P, Rt
+    log(f"[rans-full] card: {smi}; " + json.dumps(
+        {k: {kk: round(vv, 6) for kk, vv in v.items()}
+         for k, v in out.items()}))
+    return out
+
+
 def interface_sides(bt):
     """Interface rows per (d, s) side: the 2:1 fold's row index counts."""
     return [int(n) for n in (bt.fold_rows >= 0).sum(dim=0).tolist()]
@@ -1013,6 +1227,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     gather_phases(root, dev, smi, blk)
     gather3d_full(smi, blk3d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rans_phases(dev, smi)
+    log(f"[rans] phases 17-20 took {time.perf_counter() - t0:.1f} s")
 
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -39,7 +39,7 @@ from ..physics.fluid import (Fluid, make_fluid, physicality_guard,
 from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
-from ..topology.domain import Domain
+from ..topology.domain import Domain, require_device
 
 RAE_DAT = os.path.join(os.path.dirname(__file__), "data", "rae2822.dat")
 FAMILIES = ("farfield", "wall")
@@ -179,10 +179,7 @@ def build_rae2822(
     raises: the sharded march is not ported. ``mirror_wall`` exists on the
     gather march only (through `FusedBoundary`), and the flagged cut-cell
     wall ``cutcell`` is not ported."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_rae2822: device is CUDA but no CUDA "
-                           "device is available (pass device='cpu')")
+    device = require_device("build_rae2822", device)
     blocks_on = use_blocks and n_partitions == 1
     if cutcell or (mirror_wall and blocks_on):
         raise NotImplementedError(

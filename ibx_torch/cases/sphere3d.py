@@ -32,7 +32,7 @@ from ..physics.fluid import Fluid, make_fluid, physicality_guard
 from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
-from ..topology.domain import Domain, FusedBoundary
+from ..topology.domain import Domain, FusedBoundary, require_device
 
 FAMILIES = ("farfield", "wall")
 
@@ -179,10 +179,7 @@ def build_sphere3d(
     """Build the sphere case on ``device`` (the card unless asked
     otherwise); same parameters as the JAX package's `build_sphere3d`.
     ``use_blocks=False`` takes the generic gather march."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_sphere3d: device is CUDA but no CUDA "
-                           "device is available (pass device='cpu')")
+    device = require_device("build_sphere3d", device)
     t0 = time.perf_counter()
     stl = merge_points(icosphere(h=surface_h))
     msh = build_mesh(

@@ -6,7 +6,9 @@ the block tables as numpy arrays (the fields of the JAX package's
 `BlockTables`, or `ibx_torch.topology.blocks.build_block_tables_raw`
 output) and the ghost-family dict of `_collect_families`, and returns the
 port's `BlockTables` and `GhostBC` on ``device``, for a 2D or a 3D mesh
-(the kernel tables of `BlockTables` exist at nd = 3 only).
+(the kernel tables of `BlockTables` exist at nd = 3 only). The ghost
+families' image distances come across with them
+(`GhostBC.image_distances`, in the dict's row order).
 
 The gather path's tables come across the same way: `stencil_from_numpy`,
 `partition_from_numpy`, `boundary_from_numpy` and
@@ -14,11 +16,18 @@ The gather path's tables come across the same way: `stencil_from_numpy`,
 `Partition`, `Boundary` and `FusedBoundary` as numpy arrays (a `Stencil`
 field as its ``(idx, w)`` pair or a dict with those keys) and return the
 port's objects on ``device``, index tables as int64.
+
+A case's flat state comes across with `state_from_numpy`: the JAX case's
+``P0`` (and, for RANS, ``Rt0``) as numpy arrays -> float32 tensors on
+``device``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from .ops.operators import Partition
 from .ops.stencil import Stencil, stencil_from_padded
@@ -28,11 +37,21 @@ from .topology.domain import Boundary, FusedBoundary, _f32, _i64
 
 
 def tables_from_numpy(bt_fields: Dict[str, object], families: dict,
-                      names: Sequence[str], device
+                      names: Sequence[str], device,
+                      dense_families: Optional[Sequence[str]] = None,
                       ) -> Tuple[BlockTables, GhostBC]:
+    """``dense_families`` is accepted and ignored (`GhostBC.from_numpy`)."""
     bt = BlockTables.from_numpy(bt_fields, device)
-    bc = GhostBC.from_numpy(families, names, bt.block_size ** bt.nd, device)
+    bc = GhostBC.from_numpy(families, names, bt.block_size ** bt.nd, device,
+                            dense_families=dense_families)
     return bt, bc
+
+
+def state_from_numpy(*arrays, device) -> Tuple[torch.Tensor, ...]:
+    """Flat state arrays (``P`` [N, 2+nd], ``Rt`` [N], ...) -> float32
+    tensors on ``device``, one per array."""
+    return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                 for a in arrays)
 
 
 def stencil_from_numpy(st, device) -> Stencil:

@@ -2,7 +2,7 @@
 ``[B, bs, ..., bs, C]`` (counterpart of `ibx/ops/block_ops.py`, nd = 2
 and 3): layout reshapes, the structured 2:1 interface corrections, the
 generic sparse leftover, `face_accumulate` (its default concat
-formulation), the block Euler RHS `euler_rhs_grid` with the ``fix3``
+formulation) and `cell_gradient_grid` on it, the block Euler RHS `euler_rhs_grid` with the ``fix3``
 robustness blend, the ``viscous`` fluxes with an ``mu_t3`` field and, at
 nd = 3, its kernel route, implicit residual smoothing, and the grid
 marches `rk2_step_grid` / `euler_step_grid` with their flat wrappers. At
@@ -300,6 +300,17 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
         out = out + _generic_sparse(bt, d, parts, fn, n_out,
                                     signed_mask).reshape(out.shape)
     return out
+
+
+def cell_gradient_grid(bt: BlockTables, u3, d: int):
+    """Green-Gauss cell gradient of ``u3`` [B, bs.., K] along dim ``d``,
+    the dense counterpart of `ibx_torch.ops.operators.cell_gradient`."""
+    K = u3.shape[-1]
+
+    def face_fn(Wo, Wn, ho, hn):
+        return (Wo * hn + Wn * ho) / (ho + hn)
+
+    return face_accumulate(bt, d, u3, face_fn, K, [1.0] * K)
 
 
 # ---------------------------------------------------------------------------

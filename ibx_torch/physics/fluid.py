@@ -1,6 +1,7 @@
-"""Ideal-gas fluid model and variable transforms.
+"""Ideal-gas fluid model, variable transforms, atmosphere.
 
-Counterpart of `ibx/physics/fluid.py` (reference ``src/cfd.jl:14-151``),
+Counterpart of `ibx/physics/fluid.py` (reference
+``src/cfd.jl:14-151,304-426,619-654,747-802``),
 with the same deliberately replicated quirks: R defaults to 283.0
 (nonstandard), the Sutherland-style viscosity uses exponent 2/3 (the
 classic law uses 3/2), and temperatures clamp at 10 K. Everything is
@@ -151,3 +152,118 @@ def physicality_guard(P, p_floor=1.0, u_max=3000.0, p_ceil=1e9, T_ceil=2e4):
 def pressure_coefficient(fluid: Fluid, p, p_inf: float, M_inf: float):
     """Cp = 2 (p/p_inf - 1) / (gamma M^2) (reference ``src/cfd.jl:420-426``)."""
     return 2.0 * (p / p_inf - 1.0) / (M_inf ** 2 * fluid.gamma)
+
+
+def reynolds_number(fluid: Fluid, P_inf, L_ref: float):
+    """Re from freestream primitives (reference ``src/cfd.jl:626-637``),
+    in float32: a 0-dim tensor (on ``P_inf``'s device when it is a
+    tensor, on the host otherwise)."""
+    P_inf = torch.as_tensor(P_inf, dtype=torch.float32)
+    V = torch.sqrt((P_inf[2:] ** 2).sum())
+    T = P_inf[1]
+    p = P_inf[0]
+    rho = p / (fluid.R * T)
+    mu = dynamic_viscosity(fluid, T)
+    return V * L_ref * rho / mu
+
+
+def adjust_reynolds(fluid: Fluid, P_inf, L_ref: float, Re: float) -> Fluid:
+    """Rescale mu_ref to hit a target Re (reference ``src/cfd.jl:645-654``)."""
+    Re_old = reynolds_number(fluid, P_inf, L_ref)
+    mu_ref = torch.tensor(fluid.mu_ref, dtype=torch.float32) * Re_old.cpu() / Re
+    return dataclasses.replace(fluid, mu_ref=float(mu_ref))
+
+
+# --- ISA standard atmosphere (host-side scalar; reference src/cfd.jl:304-397)
+
+_ISA_LAYERS = [
+    (0.0, 288.15, -6.5, 101325.0),
+    (11000.0, 216.65, 0.0, 22632.0),
+    (20000.0, 216.65, 1.0, 5474.9),
+    (32000.0, 228.65, 2.8, 868.02),
+    (47000.0, 270.65, 0.0, 110.91),
+    (51000.0, 270.65, -2.8, 66.939),
+    (71000.0, 214.65, -2.0, 3.9564),
+]
+
+
+def _isa_atmosphere(altitude_m: float, dT: float = 0.0):
+    R = 287.05287
+    g0 = 9.80665
+    if altitude_m < 0:
+        raise ValueError("Altitude cannot be negative")
+    layer = _ISA_LAYERS[0]
+    for i in range(len(_ISA_LAYERS) - 1):
+        if altitude_m >= _ISA_LAYERS[i][0]:
+            layer = _ISA_LAYERS[i]
+    h_base, T_base, lapse, P_base = layer
+    lapse_m = lapse / 1000.0
+    dh = altitude_m - h_base
+    T = T_base + lapse_m * dh + dT
+    if abs(lapse_m) < 1e-10:
+        P = P_base * np.exp(-g0 * dh / (R * (T_base + dT)))
+    else:
+        expn = -g0 / (R * lapse_m)
+        Tb = T_base + dT
+        P = P_base * ((Tb + lapse_m * dh) / Tb) ** expn
+    return float(P), float(T)
+
+
+def isa_atmosphere(
+    altitude_m: float,
+    *,
+    dT: float = 0.0,
+    Mach: float = 0.0,
+    V: float = None,
+    direction=(1.0,),
+):
+    """(Fluid, P_inf) for a flight condition (reference ``src/cfd.jl:379-397``);
+    P_inf is a float32 numpy vector."""
+    p, T = _isa_atmosphere(altitude_m, dT)
+    fluid = make_fluid()
+    if V is None:
+        a = float(np.sqrt(1.4 * 283.0 * max(T, 10.0)))
+        V = Mach * a
+    d = np.asarray(direction, dtype=np.float64)
+    d = d / (np.linalg.norm(d) + np.finfo(np.float32).eps)
+    P_inf = np.concatenate([[p, T], V * d]).astype(np.float32)
+    return fluid, P_inf
+
+
+def streamwise_direction(alpha: float, beta: float = None):
+    """Flow direction from angles in degrees (reference
+    ``src/cfd.jl:407-409,434-436``), a float32 numpy vector."""
+    a = np.deg2rad(alpha)
+    if beta is None:
+        return np.array([np.cos(a), np.sin(a)], dtype=np.float32)
+    b = np.deg2rad(beta)
+    return np.array(
+        [np.cos(a) * np.cos(b), -np.cos(a) * np.sin(b), np.sin(a)],
+        dtype=np.float32,
+    )
+
+
+class TimeAverage:
+    """Exponential moving average + moving std monitor (host-side stateful;
+    reference ``src/cfd.jl:747-802``) over tensors."""
+
+    def __init__(self, tau: float):
+        self.tau = tau
+        self.mu = None
+        self.sigma = None
+
+    def push(self, Q, dt=1.0):
+        Q = torch.as_tensor(Q)
+        if self.mu is None:
+            self.mu = Q
+            self.sigma = torch.zeros_like(Q)
+            return self.mu
+        dt = torch.as_tensor(dt, device=Q.device)
+        if dt.dim() == 1 and Q.dim() > 1:
+            dt = dt.reshape((1,) * (Q.dim() - 1) + (-1,))
+        eta = dt / self.tau
+        self.sigma = torch.sqrt(
+            self.sigma ** 2 * (1.0 - eta) + (self.mu - Q) ** 2 * eta
+        )
+        self.mu = self.mu * (1.0 - eta) + Q * eta
+        return self.mu

@@ -7,7 +7,10 @@ package's `FusedBoundary.__call__` (`ibx/topology/domain.py`), which
 (nd = 2 or 3):
 gather the image-point stencils, apply the per-family BC callbacks, blend
 with eta, guard, and write the ghosts back once. The ghost set comes from
-`_collect_families`, a verbatim numpy copy of the JAX package's function.
+`_collect_families`, a verbatim numpy copy of the JAX package's function;
+its rows keep that order, and so do the image distances a wall-function
+callback closes over (`GhostBC.image_distances`). The state may carry any
+number of channels (RANS hands the fused ``[p T u.. Rt]`` state).
 The TPU write-back machinery of `ibx/topology/blocked_bc.py` (16-slot
 tiles, phase views, union buffer, dense planes) exists for the TPU's
 scatter cost and is not ported: here the write-back is one `index_put_`.
@@ -76,7 +79,12 @@ class GhostBC:
     """Fused multi-family ghost BC. Stencil point k of ghost g is cell
     (``src_b[g, k]``, ``src_w[g, k]``) of the ``[B, C, bs^nd]`` view with
     weight ``w[g, k]``; ghost g itself is (``ghost_b[g]``, ``ghost_w[g]``).
-    The ghosts are unique, so the write-back is exact."""
+    The ghosts are unique, so the write-back is exact.
+
+    ``image_distances`` (f32[G]) is each ghost's image distance in this
+    row order, the rows every callback receives: the RANS wall functions
+    close over it. It is not the row order of the JAX package's
+    `BlockedBC.image_distances`, which its TPU tiles reorder."""
 
     src_b: torch.Tensor      # int64[G, K]
     src_w: torch.Tensor      # int64[G, K]
@@ -87,12 +95,16 @@ class GhostBC:
     eta: torch.Tensor        # f32[G, 1]
     family: torch.Tensor     # int64[G] index into names
     names: Tuple[str, ...]
+    image_distances: torch.Tensor  # f32[G]
 
     @classmethod
     def from_numpy(cls, fams: dict, names: Sequence[str], npb: int,
-                   device) -> "GhostBC":
+                   device, dense_families: Optional[Sequence[str]] = None
+                   ) -> "GhostBC":
         """From `_collect_families` output (flat cell ids, ``npb`` cells a
-        block)."""
+        block). ``dense_families`` is accepted and ignored: in the JAX
+        package it picks the families that take the TPU's dense-plane
+        write path, which gives the same values as the general one."""
         def idx(a):
             return torch.as_tensor(np.array(a, np.int64), device=device)
 
@@ -106,6 +118,7 @@ class GhostBC:
             ghost_b=idx(g // npb), ghost_w=idx(g % npb),
             normals=f32(fams["normals"]), eta=f32(fams["eta"])[:, None],
             family=idx(fams["family"]), names=tuple(names),
+            image_distances=f32(fams["imd"]),
         )
 
     def _ghost_values(self, read, fns: Dict[str, Callable],

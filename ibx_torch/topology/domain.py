@@ -42,6 +42,16 @@ from .interp import interpolator
 _EPS32 = float(np.finfo(np.float32).eps)
 
 
+def require_device(name: str, device) -> torch.device:
+    """``device`` as a `torch.device`; a CUDA device without a card raises
+    (entry points run on the card unless the caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: device is CUDA but no CUDA device is "
+                           f"available (pass device='cpu')")
+    return device
+
+
 def _i64(a, device=None) -> torch.Tensor:
     return torch.as_tensor(np.array(a, np.int64), device=device)
 
@@ -408,10 +418,7 @@ class Domain(DomainExecutionMixin):
         # overwrite solved cells) and stay eligible as image-stencil
         # sources. Not persisted into reconstruction_kwargs: coarse
         # multigrid rebuilds use the plain ghost bands.
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Domain: device is CUDA but no CUDA device "
-                               "is available (pass device='cpu')")
+        self.device = require_device("Domain", device)
         self.mesh = msh
         self.nd = msh.ndim
         self._verbose = bool(verbose)

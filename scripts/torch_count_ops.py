@@ -3,10 +3,11 @@
 
     python3 scripts/torch_count_ops.py
 
-Builds RAE2822 at wall_h=8e-2 (16,768 cells) and the bs=4 sphere (18,432
-cells) with ``device="cpu"`` and runs one `case.step` of the generic gather
-march (``use_blocks=False``) and of the block march under a
-`TorchDispatchMode`: every dispatched op, those that are views (no device
+Builds RAE2822 at wall_h=8e-2 (16,768 cells), the bs=4 sphere (18,432
+cells), the RANS airfoil at wall_h=8e-2, block_size=8 (16,768 cells) and
+the flat plate at wall_h=2e-2 (9,216 cells) with ``device="cpu"`` and runs
+one `case.step` of the generic gather march (``use_blocks=False``) and of
+the block march under a `TorchDispatchMode`: every dispatched op, those that are views (no device
 launch), and the rest. The op count does not depend on the mesh size, so it
 is the host's work a step at any size. It also counts the row gathers
 (`ibx_torch.ops.stencil.take_rows`) whose rows are a multiple of 16 bytes
@@ -45,7 +46,8 @@ class Count(TorchDispatchMode):
 
 
 def main() -> int:
-    from ibx_torch.cases import build_rae2822, build_sphere3d
+    from ibx_torch.cases import (build_flat_plate, build_rae2822,
+                                 build_rae2822_rans, build_sphere3d)
 
     torch.set_num_threads(2)
     small = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7, device="cpu")
@@ -59,9 +61,20 @@ def main() -> int:
         "sphere channel-split march": (build_sphere3d(**sphere), {}),
         "sphere grid march": (build_sphere3d(**sphere), dict(grid=True)),
     }
+    rans = dict(wall_h=8e-2, feature_h=4e-2, block_size=8, device="cpu")
+    plate = dict(wall_h=2e-2, reynolds=6e5, device="cpu")
+    for ub in (False, True):
+        march = "gather march (use_blocks=False)" if not ub else "block march"
+        cases[f"RANS RAE2822 {march}"] = (
+            build_rae2822_rans(use_blocks=ub, **rans), None)
+        cases[f"RANS flat plate {march}"] = (
+            build_flat_plate(use_blocks=ub, **plate), None)
     for label, (case, kw) in cases.items():
         with Count() as c:
-            case.step(case.P0, **kw)
+            if kw is None:
+                case.step(case.P0, case.Rt0)
+            else:
+                case.step(case.P0, **kw)
         print(f"{label}: {c.n} dispatched ops a step, {c.views} views, "
               f"{c.n - c.views} launches; {c.wide_gathers} row gathers of "
               f"rows a multiple of 16 bytes wide")

@@ -1,6 +1,10 @@
 """Package rules of the port: no JAX or `ibx` import anywhere in
-`ibx_torch` or `chip_smoke.py`; entry points default to the card and
-refuse to run without one; CPU tensors never count as kernel launches."""
+`ibx_torch` or `chip_smoke.py`; every name a subpackage of `ibx` exports
+is exported by the port's, or is listed as not ported yet with its ROADMAP
+item; entry points default to the card and refuse to run without one; CPU
+tensors never count as kernel launches."""
+
+import importlib
 
 import ast
 from pathlib import Path
@@ -9,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from ibx_torch.cases import build_rae2822, build_sphere3d
+from ibx_torch.cases import (build_flat_plate, build_rae2822,
+                             build_rae2822_rans, build_sphere3d)
 from ibx_torch.ops import kernels as K
 from ibx_torch.physics.fluid import make_fluid
 
@@ -53,6 +58,12 @@ def test_scan_covers_the_2d_modules():
             "ibx_torch/ops/stencil.py", "ibx_torch/ops/operators.py",
             "ibx_torch/solve/euler.py", "ibx_torch/solve/__init__.py",
             "ibx_torch/convert.py", "chip_smoke.py"}
+    # the RANS slice
+    want |= {"ibx_torch/physics/turbulence.py", "ibx_torch/physics/ibl.py",
+             "ibx_torch/physics/__init__.py", "ibx_torch/solve/rans.py",
+             "ibx_torch/cases/rae2822_rans.py",
+             "ibx_torch/cases/flat_plate.py",
+             "ibx_torch/topology/__init__.py"}
     assert want <= names, want - names
     for f in _port_files():
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -66,6 +77,37 @@ def test_scan_covers_the_2d_modules():
     assert (ROOT / "ibx_torch") in Path(RAE_DAT).resolve().parents
 
 
+# names of `ibx.<pkg>.__all__` the port does not have yet, each with the
+# ROADMAP item that ports it
+NOT_PORTED = {
+    "solve": dict.fromkeys(
+        ["fas", "FasEuler", "point_implicit_step", "Multigrid",
+         "coarsener_and_prolongator", "multigrid_levels", "DomainHierarchy",
+         "multigrid", "Linearization", "PIPreconditioner",
+         "hutchinson_block_diagonal", "linearize", "solve"],
+        "ROADMAP queue 1 item 7 (solver acceleration)"),
+}
+
+
+@pytest.mark.parametrize("pkg", ["physics", "topology", "solve", "cases",
+                                 "ops", "geometry"])
+def test_subpackage_exports_match_ibx(pkg):
+    """Every name of ``ibx.<pkg>.__all__`` exists in ``ibx_torch.<pkg>``
+    (and in its ``__all__``), or is on the not-ported list; a listed name
+    must really be missing, so the list shrinks as items land."""
+    ref = importlib.import_module(f"ibx.{pkg}")
+    port = importlib.import_module(f"ibx_torch.{pkg}")
+    todo = NOT_PORTED.get(pkg, {})
+    for name in ref.__all__:
+        if name in todo:
+            assert not hasattr(port, name), f"{name} is ported: unlist it"
+            assert "ROADMAP queue" in todo[name]
+            continue
+        assert hasattr(port, name), f"ibx_torch.{pkg} lacks {name}"
+        assert name in port.__all__, name
+    assert set(todo) <= set(ref.__all__)
+
+
 def test_build_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -76,6 +118,11 @@ def test_build_without_device_needs_cuda(monkeypatch):
         build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_rae2822(wall_h=8e-2, feature_h=4e-2, use_blocks=False)
+    for kw in ({}, dict(use_blocks=False)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_rae2822_rans(wall_h=8e-2, feature_h=4e-2, **kw)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_flat_plate(wall_h=2e-2, **kw)
 
 
 def test_domain_without_device_needs_cuda(monkeypatch):
