@@ -81,10 +81,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (wall_h=4e-3), 800 steps, no pressure collapse;
  20. RANS at the cases' default sizes: `build_rae2822_rans()` (242,176
      cells) and `build_flat_plate()` (105,984 cells), each on the block and
-     the gather march, 2 warm-up steps then 200 steps timed with CUDA
+     the gather march, 2 warm-up steps then 100 steps timed with CUDA
      events and the host clock, the card's busy time a step from
      `torch.profiler`, build s and peak memory, Cl/Cd and mid-chord Cf for
      the airfoil, and the four kernel counters 0 (no kernel lies on RANS);
+ 21. solver parity, card vs CPU, at wall_h=8e-2: on the gather case, a
+     `FasEuler(max_levels=2)` a smoother ("euler" at cfl 0.5, "rk2" at
+     0.7) built by the BC recipe of tests/test_fas_euler.py: each transfer
+     stencil applied, `_f` at every level and one `cycle(n_iter=2)`; on
+     the block case, `_block_inv` of seeded blocks, the point-implicit map
+     ``g`` and its JVP, and `solve` with the CPU's preconditioner;
+ 22. the FAS verdict of scripts/fas_verdict2d.py, counted in calls:
+     `build_rae2822(wall_h=2e-2, feature_h=1e-2, cfl=0.7, mach=0.4)`,
+     `FasEuler(max_levels=3, smoother="rk2", cfl=0.7)`, 30 calls of
+     `smooth_only` and 30 of `cycle` (n_iter=25, rtol=1e-6) from the same
+     freestream state, the functional L2 of dt*R over the solved cells
+     after each call; fas3 must reach 0.3x its peak, in at most 1/1.5 of
+     smoothing's calls where smoothing reaches it too, and end under a
+     third of smoothing's final ratio (tests/test_fas_verdict.py's
+     margins), with the card's seconds a call;
+ 23. the slice at full width (881,152 cells): FAS-Euler on the gather
+     march at M 0.4 (the 3-level hierarchy with each level's cells and
+     build s; 5 cycles against 5 smoothing calls of n_iter=10:
+     tests/test_fas_euler.py's residual and physical-range checks; ms a
+     call, peak memory, the card's busy time for one cycle); then 3
+     `point_implicit_step`s (cfl 5, relax 0.8, the freeze mask, the
+     frozen limiter: the exact one's Jacobian leaves float32 beside the
+     wall there, its non-finite rows are printed) on the block march from
+     the oracle's state, each with a linear ratio under 1
+     and a finite state, the solved-cell residual under 3x its start
+     (tests/test_point_implicit_euler.py), ms a step; the four kernel
+     counters stay 0 over phases 21-23;
 then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -154,9 +181,26 @@ RANS_REF_CELLS = 87_040
 PLATE_REF = dict(wall_h=1e-2, length=1.25, height=0.5, reynolds=6e5)
 PLATE_LOWYP = dict(wall_h=4e-3, reynolds=6e5, length=1.25, height=0.5,
                    mach=0.2, cfl=0.5)
+# solver acceleration (phases 21-23): card vs CPU on the wall_h=8e-2
+# fixtures; the FAS verdict case of scripts/fas_verdict2d.py; the flagship
+SOLVE_SMALL = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7)
+FAS_SMOOTHERS = {"euler": 0.5, "rk2": 0.7}   # smoother -> cfl
+TRANSFER_TOL = 1e-6      # a transfer applied, card vs CPU, relative
+FAS_F_TOL = 1e-5         # FasEuler._f, card vs CPU, per channel
+FAS_CYCLE_TOL = 1e-3     # one cycle(n_iter=2): state per channel, ratio
+PI_TOL = 1e-4            # _block_inv, solve and the JVP of g, per channel
+PI_CFL = 5.0             # tests/test_point_implicit_euler.py's settings
+PI_RELAX = 0.8
+VERDICT_CASE = dict(wall_h=2e-2, feature_h=1e-2, cfl=0.7, mach=0.4,
+                    alpha_deg=2.31, use_blocks=False)
+VERDICT_CALLS = 30
+VERDICT_ITERS = 25
+FAS_FULL_CALLS = 5
+FAS_FULL_ITERS = 10
+PI_STEPS = 3
 RANS_CELLS = 242_176
 PLATE_CELLS = 105_984
-RANS_STEPS = 200
+RANS_STEPS = 100
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
@@ -933,6 +977,379 @@ def rans_phases(dev, smi):
     return out
 
 
+def fas_solver(case, max_levels, smoother, cfl):
+    """`FasEuler` over ``case.dom`` by the recipe of
+    tests/test_fas_euler.py:21-55: the farfield and wall families one after
+    the other through `Domain.impose_bc`, the cells inside the airfoil
+    frozen on every level."""
+    from ibx_torch.cases.rae2822 import RAE_DAT
+    from ibx_torch.geometry import load_surface, merge_points
+    from ibx_torch.geometry.inside import points_inside
+    from ibx_torch.physics import apply_flow_bc, flow_bc
+    from ibx_torch.solve import FasEuler
+
+    stl = merge_points(load_surface(RAE_DAT))
+    dev = case.P0.device
+    P_inf = np.asarray(case.P_inf, np.float32)
+    far = flow_bc(case.fluid, P_inf, device=dev)
+    wall = flow_bc(case.fluid, [float(P_inf[0]), float(P_inf[1]), 0.0],
+                   normal_flow=True, device=dev)
+
+    def make_bcs(d):
+        def apply_bcs(P):
+            P = d.impose_bc(
+                "farfield", lambda b, Pi: apply_flow_bc(far, Pi, b.normals),
+                P)
+            return d.impose_bc(
+                "wall", lambda b, Pi: apply_flow_bc(wall, Pi, b.normals), P)
+        return apply_bcs
+
+    return FasEuler(case.dom, case.fluid, make_bcs, max_levels=max_levels,
+                    cfl=cfl, smoother=smoother,
+                    inside_fn=lambda c: points_inside(stl, c))
+
+
+def l2(r):
+    return float(torch.sqrt((r.float() ** 2).sum()))
+
+
+def seeded_blocks(n, k=4, seed=3):
+    """Diagonally dominant [n, k, k] blocks over five decades of scale, as
+    the Newton blocks of the point-implicit step are."""
+    rng = np.random.default_rng(seed)
+    D = rng.normal(size=(n, k, k)).astype(np.float32)
+    D += (4.0 + 10.0 * rng.uniform(size=(n, 1, 1))) * np.eye(
+        k, dtype=np.float32)
+    return D * (10.0 ** rng.uniform(-2, 3, size=(n, 1, 1))).astype(
+        np.float32)
+
+
+def calls_to(curve, frac):
+    """Calls from the start until the functional first falls to ``frac``
+    of its peak (after the peak), or None (the JAX package's
+    tests/test_fas_verdict.py::_t_to, counted in calls)."""
+    pk = int(np.argmax(curve))
+    hit = [i for i in range(pk, len(curve)) if curve[i] <= frac * curve[pk]]
+    return hit[0] if hit else None
+
+
+def solver_phases(root, dev, smi):
+    """Phases 21-23: solver acceleration (multigrid transfers, FAS and
+    FAS-Euler, the point-implicit solver). No kernel lies on it (FAS-Euler
+    runs on the gather path, the point-implicit step on the nd = 2 block
+    path, as in the JAX package), so it adds no row to the kernels line;
+    the four counters are asserted to stay 0."""
+    from ibx_torch.cases import build_rae2822
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.block_ops import euler_rhs_block
+    from ibx_torch.physics.fluid import physicality_guard, state2primitive
+    from ibx_torch.solve import (Linearization, PIPreconditioner, linearize,
+                                 point_implicit_step, solve)
+    from ibx_torch.solve.euler import euler_rhs, local_timestep
+    from ibx_torch.solve.point_implicit import _block_inv
+    from ibx_torch.solve.point_implicit_euler import newton_map
+
+    zero = dict.fromkeys(K.launches, 0)
+    K.reset_launches()
+
+    # 21. solver parity, card vs CPU, on the wall_h=8e-2 fixtures
+    gg = build_rae2822(device=dev, use_blocks=False, **SOLVE_SMALL)
+    gcpu = build_rae2822(device="cpu", use_blocks=False, **SOLVE_SMALL)
+    P = perturbed2d(gg)
+    log(f"[solve-parity] RAE2822 {SOLVE_SMALL} ({gg.dom.ncells} cells), "
+        f"gather case: FasEuler(max_levels=2), card vs CPU")
+    for smoother, cfl in FAS_SMOOTHERS.items():
+        t0 = time.perf_counter()
+        fg = fas_solver(gg, 2, smoother, cfl)
+        fc = fas_solver(gcpu, 2, smoother, cfl)
+        log(f"  {smoother} smoother (cfl {cfl}): levels "
+            f"{[d.ncells for d in fg.domains]} cells, two hierarchies "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        if smoother == "euler":
+            rng = np.random.default_rng(11)
+            for i, (c, p) in enumerate(zip(fg.coarseners, fg.prolongators)):
+                for name, st, stc in (("coarsener", c, fc.coarseners[i]),
+                                      ("prolongator", p,
+                                       fc.prolongators[i])):
+                    n_in = int(stc.idx.max()) + 1
+                    u = torch.as_tensor(rng.normal(size=(n_in, 4)).astype(
+                        np.float32))
+                    check(f"{name} {i} applied ({st.n_output} x "
+                          f"{st.width}, relative)",
+                          rel_max(stc(u), st(u.to(dev)).cpu()), TRANSFER_TOL)
+        Qc = fc.init_state(P.cpu())
+        Qg = fg.init_state(P)
+        check("init_state (per channel)", chan_err(Qc, Qg.cpu()), FAS_F_TOL)
+        Ql = Qc
+        for lvl in range(len(fc.domains)):
+            rc, _ = fc._f(lvl, Ql)
+            rg, _ = fg._f(lvl, Ql.to(dev))
+            check(f"_f level {lvl} (per channel)", chan_err(rc, rg.cpu()),
+                  FAS_F_TOL)
+            if lvl < len(fc.coarseners):
+                Ql = fc.coarseners[lvl](Ql)
+        Q2c, r2c = fc.cycle(Qc, n_iter=2)
+        Q2g, r2g = fg.cycle(Qc.to(dev), n_iter=2)
+        check("cycle(n_iter=2) state (per channel)",
+              chan_err(Q2c, Q2g.cpu()), FAS_CYCLE_TOL)
+        check("cycle(n_iter=2) ratio (relative)",
+              abs(float(r2g) - float(r2c)) / abs(float(r2c)), FAS_CYCLE_TOL)
+    del gg, gcpu, fg, fc
+
+    bg = build_rae2822(device=dev, **SOLVE_SMALL)
+    bcpu = build_rae2822(device="cpu", **SOLVE_SMALL)
+    P = perturbed2d(bg)
+    log(f"[solve-parity] the same mesh, block case: the point-implicit "
+        f"solver (cfl {PI_CFL}, the freeze mask), card vs CPU")
+    D = torch.as_tensor(seeded_blocks(bg.dom.ncells))
+    check("_block_inv (per row of the blocks)",
+          chan_err(_block_inv(D), _block_inv(D.to(dev)).cpu()), PI_TOL)
+    gfn, Qn = newton_map(bg.bt, bg.fluid, P, bg.apply_bcs, cfl=PI_CFL,
+                         active=bg.active3.reshape(-1))
+    cfn, Qnc = newton_map(bcpu.bt, bcpu.fluid, P.cpu(), bcpu.apply_bcs,
+                          cfl=PI_CFL, active=bcpu.active3.reshape(-1))
+    rng = np.random.default_rng(9)
+    scale = Qnc.abs().amax(dim=0).numpy()
+    v = torch.as_tensor((rng.normal(size=tuple(Qnc.shape)) * 1e-3
+                         * scale).astype(np.float32))
+    Ac, bc_, prec_c = linearize(cfn, Qnc, n_hutchinson_samples=2)
+    Ag = Linearization(gfn, Qn, gfn(Qn))
+    check("g at Q_n (per channel)", chan_err(Ac.fx, Ag.fx.cpu()), PI_TOL)
+    check("JVP of g (per channel)", chan_err(Ac(v), Ag(v.to(dev)).cpu()),
+          PI_TOL)
+    prec_g = PIPreconditioner(prec_c.inverse_diagonal.to(dev))
+    xc, rc = solve(Ac, bc_, prec_c, n_iter=8, rtol=1e-2)
+    xg, rg = solve(Ag, -Ag.fx, prec_g, n_iter=8, rtol=1e-2)
+    check("solve x, 8 iterations (per channel)", chan_err(xc, xg.cpu()),
+          PI_TOL)
+    check("solve ratio (relative)",
+          abs(float(rg) - float(rc)) / abs(float(rc)), PI_TOL)
+    assert dict(K.launches) == zero, K.launches
+    del bg, bcpu, gfn, cfn, Ac, Ag, Qn, Qnc
+
+    # 22. the FAS verdict (scripts/fas_verdict2d.py), counted in calls
+    t0 = time.perf_counter()
+    case = build_rae2822(**VERDICT_CASE)
+    t_case = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe = fas_solver(case, 3, "rk2", 0.7)
+    t_fe = time.perf_counter() - t0
+    dom = fe.domains[0]
+    part, fl = dom.partitions[0], fe.fluid
+    ghost = np.zeros(dom.ncells, bool)
+    for hb in dom._host_boundaries.values():
+        ghost[hb.ghosts] = True
+    solved = torch.as_tensor((~ghost).astype(np.float32),
+                             device=dev) * fe.active[0]
+
+    def res_l2(Q):
+        """L2 of dt*R over the solved cells at cfl 0.7, the verdict's
+        functional (scripts/fas_verdict2d.py:97-130)."""
+        P = fe.bcs[0](physicality_guard(state2primitive(fl, Q)))
+        R = euler_rhs(part, fl, P, high_order=fe.high_order)
+        dt = local_timestep(part, fl, P, 0.7) * solved
+        return l2(R * dt[:, None])
+
+    log(f"[verdict] build_rae2822({VERDICT_CASE}): {dom.ncells} cells, "
+        f"build {t_case:.1f} s; FasEuler(max_levels=3, smoother='rk2', "
+        f"cfl=0.7) levels {[d.ncells for d in fe.domains]} cells, built in "
+        f"{t_fe:.1f} s; {int(ghost.sum())} ghost cells left out of the "
+        f"functional")
+    Q0 = fe.init_state(case.P0)
+    curves, secs = {}, {}
+    for arm, fn in (("smooth", fe.smooth_only), ("fas3", fe.cycle)):
+        Q, curve, t_arm = Q0, [res_l2(Q0)], 0.0
+        for _ in range(VERDICT_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Q, _ = fn(Q, n_iter=VERDICT_ITERS, rtol=1e-6)
+            torch.cuda.synchronize()
+            t_arm += time.perf_counter() - t0
+            curve.append(res_l2(Q))
+        curves[arm], secs[arm] = np.asarray(curve), t_arm / VERDICT_CALLS
+        pk = int(np.argmax(curve))
+        log(f"[verdict] {arm}: {VERDICT_CALLS} calls of n_iter="
+            f"{VERDICT_ITERS}, {secs[arm]:.3f} s a call on the card; peak "
+            f"{curve[pk]:.6e} after call {pk}, 0.3x peak at call "
+            f"{calls_to(curve, 0.3)}, final {curve[-1] / curve[pk]:.4f} of "
+            f"peak; functional after each call: "
+            + " ".join(f"{r:.5e}" for r in curve))
+    assert dict(K.launches) == zero, K.launches
+    n_fas, n_sm = calls_to(curves["fas3"], 0.3), calls_to(curves["smooth"],
+                                                          0.3)
+
+    def final(c):
+        return c[-1] / c.max()
+
+    log(f"[verdict] calls to 0.3x peak: fas3 {n_fas}, smoothing {n_sm}; "
+        f"final/peak: fas3 {final(curves['fas3']):.4f}, smoothing "
+        f"{final(curves['smooth']):.4f}; card: {smi}")
+    assert all(np.isfinite(c).all() for c in curves.values())
+    assert n_fas is not None, "fas3 never reached 0.3x its peak"
+    if n_sm is not None:
+        assert n_fas <= n_sm / 1.5, (n_fas, n_sm)
+    assert final(curves["fas3"]) < final(curves["smooth"]) / 3.0
+    del case, fe, part, Q, Q0
+
+    # 23. the slice at full width: FAS-Euler on the gather march (M 0.4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    case = build_rae2822(use_blocks=False, mach=0.4, **RAE_FLAGSHIP)
+    t0 = time.perf_counter()
+    fe = fas_solver(case, 3, "rk2", 0.7)
+    t_fe = time.perf_counter() - t0
+    assert fe.domains[0].ncells == RAE_CELLS
+    Q0 = fe.init_state(case.P0)
+    kw = dict(n_iter=FAS_FULL_ITERS, rtol=1e-6)
+    fe.cycle(Q0, n_iter=1)          # first partition tables at first use
+    torch.cuda.synchronize()
+    log(f"[fas-full] build_rae2822(use_blocks=False, mach=0.4, "
+        f"{RAE_FLAGSHIP}): {case.dom.ncells} cells, build "
+        f"{case.build_seconds:.1f} s; FasEuler(max_levels=3, 'rk2', cfl "
+        f"0.7) built in {t_fe:.1f} s; levels (cells, Domain build s with "
+        f"its partition tables): " + ", ".join(
+            f"{d.ncells} {sum(d.build_timings.values()):.1f}"
+            for d in fe.domains))
+    ms = {}
+    Qc = Qs = Q0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for arm in ("fas", "smooth"):
+        fn = fe.cycle if arm == "fas" else fe.smooth_only
+        Q = Q0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(FAS_FULL_CALLS):
+            Q, _ = fn(Q, **kw)
+        e1.record()
+        e1.synchronize()
+        ms[arm] = (e0.elapsed_time(e1) / FAS_FULL_CALLS,
+                   (time.perf_counter() - t0) / FAS_FULL_CALLS * 1e3)
+        if arm == "fas":
+            Qc = Q
+        else:
+            Qs = Q
+    nc, ns = l2(fe._f(0, Qc)[0]), l2(fe._f(0, Qs)[0])
+    Pc = fe.primitives(Qc)
+    act = fe.active[0] > 0
+    finite = bool(torch.isfinite(Qc).all() and torch.isfinite(Qs).all())
+    peak = torch.cuda.max_memory_allocated() - base
+    p_act, T_act = Pc[act, 0], Pc[act, 1]
+    log(f"[fas-full] {FAS_FULL_CALLS} calls of n_iter={FAS_FULL_ITERS}: "
+        f"cycle {ms['fas'][0]:.1f} ms (host clock {ms['fas'][1]:.1f}), "
+        f"smoothing {ms['smooth'][0]:.1f} ms (host {ms['smooth'][1]:.1f}) a "
+        f"call; fine residual |r| after: cycles {nc:.6e}, smoothing "
+        f"{ns:.6e}; finite {finite}; active cells p {float(p_act.min()):.1f}"
+        f" to {float(p_act.max()):.1f}, T min {float(T_act.min()):.2f}; "
+        f"peak memory {peak / 2**30:.3f} GiB above what was held")
+    assert finite and nc < 2.0 * ns, (nc, ns)
+    assert float(p_act.min()) > 1e3 and float(p_act.max()) < 1e6
+    assert float(T_act.min()) > 50
+    acts, busy_ms, _ = profile_busy(lambda: fe.cycle(Qc, **kw), 1,
+                                    "fas-full", ms["fas"][0])
+
+    # the host sync of the stop rule (one read of the residual norm an
+    # iteration): a smoothing call against the same iterations, norms
+    # included, with no read, in turns
+    def no_read(Q):
+        r0, _ = fe._f(0, Q)
+        source = torch.zeros_like(r0)
+        nr = None
+        for _ in range(FAS_FULL_ITERS):
+            r, om = fe._f(0, Q)
+            r = r + source
+            Q = Q + om.clamp(0.0, 1.0) * r
+            nr = torch.sqrt((r.float() ** 2).sum())
+        return Q, nr
+
+    t_sync = {"read": [], "no read": []}
+    for label in ("read", "no read", "no read", "read") * 3:
+        fn = (lambda Q: fe.smooth_only(Q, **kw)) if label == "read" \
+            else no_read
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(Qs)
+        torch.cuda.synchronize()
+        t_sync[label].append((time.perf_counter() - t0) * 1e3)
+    d_ms = (np.median(t_sync["read"]) - np.median(t_sync["no read"])) \
+        / FAS_FULL_ITERS
+    log(f"[fas-full] stop rule's host read: a smoothing call of "
+        f"{FAS_FULL_ITERS} iterations, host clock, synchronized, ms with "
+        f"the read an iteration " + ", ".join(
+            f"{t:.1f}" for t in t_sync["read"]) + "; without " + ", ".join(
+            f"{t:.1f}" for t in t_sync["no read"])
+        + f": medians differ by {d_ms:.3f} ms an iteration")
+    assert dict(K.launches) == zero, K.launches
+    del case, fe, Q, Q0, Qc, Qs, Pc
+
+    # 23. the point-implicit step on the block march, from the oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    case = build_rae2822(**RAE_FLAGSHIP)
+    bt, fl = case.bt, case.fluid
+    active = case.active3.reshape(-1)
+    ref = np.load(root / RAE_ORACLE)
+    P = case.apply_bcs(torch.as_tensor(ref["P"], device=dev))
+
+    def resnorm(P):
+        R = euler_rhs_block(bt, fl, case.apply_bcs(P))
+        return l2(R * active[:, None])
+
+    r0 = resnorm(P)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    # the exact limiter's linearization at this state, for the record: the
+    # frozen in-solid cells hold one pressure, so the JST sensor's |G| and
+    # its denominator sit at 0 there, and the derivative of |G| at 0 (+1,
+    # as `jnp.abs`'s) over 1e-7 gives Jacobian blocks beside the wall
+    # whose squares overflow float32 in `_block_inv`'s scale
+    g, Qn = newton_map(bt, fl, P, case.apply_bcs, cfl=PI_CFL, active=active)
+    Dinv = linearize(g, Qn, n_hutchinson_samples=8,
+                     generator=gen)[2].inverse_diagonal
+    n_bad = int((~torch.isfinite(Dinv.reshape(Dinv.shape[0], -1))).any(
+        dim=1).sum())
+    del g, Qn, Dinv
+    gen.manual_seed(0)
+    ratios, ms_steps = [], []
+    for _ in range(PI_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P, ratio = point_implicit_step(bt, fl, P, case.apply_bcs, cfl=PI_CFL,
+                                       active=active, relax=PI_RELAX,
+                                       freeze_limiter=True, generator=gen)
+        ratios.append(float(ratio))
+        ms_steps.append((time.perf_counter() - t0) * 1e3)
+        assert bool(torch.isfinite(P).all()), "non-finite point-implicit step"
+    r1 = resnorm(P)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[pi-full] the exact limiter's block inverse diagonal at the "
+        f"oracle's state: {n_bad} of {active.shape[0]} rows not finite")
+    log(f"[pi-full] point_implicit_step(cfl={PI_CFL}, relax={PI_RELAX}, "
+        f"freeze_limiter=True, 8 Hutchinson samples, 8 Krylov iterations) "
+        f"on the block march of "
+        f"build_rae2822({RAE_FLAGSHIP}) ({case.dom.ncells} cells) from "
+        f"{RAE_ORACLE}: linear ratios "
+        + ", ".join(f"{r:.4f}" for r in ratios)
+        + f"; solved-cell |R| {r0:.6e} -> {r1:.6e} ({r1 / r0:.4f}x); "
+        + "ms a step (host clock, synchronized) "
+        + ", ".join(f"{m:.1f}" for m in ms_steps)
+        + f"; peak memory {peak / 2**30:.3f} GiB above what was held; "
+        f"card: {smi}")
+    assert all(r < 1.0 for r in ratios), ratios
+    assert np.isfinite(r1) and r1 < 3.0 * r0, (r0, r1)
+    assert dict(K.launches) == zero, K.launches
+    return dict(ms_cycle=ms["fas"][0], ms_smooth=ms["smooth"][0],
+                busy_cycle=busy_ms, activities_cycle=acts, sync_ms=d_ms,
+                verdict_s_call=secs, ms_pi_step=ms_steps)
+
+
 def interface_sides(bt):
     """Interface rows per (d, s) side: the 2:1 fold's row index counts."""
     return [int(n) for n in (bt.fold_rows >= 0).sum(dim=0).tolist()]
@@ -1232,6 +1649,11 @@ def main() -> int:
     t0 = time.perf_counter()
     rans_phases(dev, smi)
     log(f"[rans] phases 17-20 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    solver_phases(root, dev, smi)
+    log(f"[solve] phases 21-23 took {time.perf_counter() - t0:.1f} s")
 
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

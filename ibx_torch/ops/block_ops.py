@@ -23,7 +23,7 @@ from ..physics.fluid import (Fluid, primitive2state, speed_of_sound,
                              state2primitive_guarded)
 from ..physics.flux import inviscid_fluxes_hll, viscous_fluxes
 from ..topology.blocks import BlockTables
-from .operators import minmod
+from .operators import abs_select, minmod
 
 _NOT_PORTED = ("not ported to ibx_torch yet (ROADMAP queue 1 item 4)")
 
@@ -325,7 +325,7 @@ def face_a(with_dt: bool) -> Callable:
         Po, Pn = Wo[0], Wn[0]
         Pf = (Po * hn + Pn * ho) / (ho + hn)
         fd = Pn[..., 0:1] - Po[..., 0:1]
-        out = [Pf, fd, fd.abs()]
+        out = [Pf, fd, abs_select(fd)]
         if with_dt:
             So, Sn = Wo[1], Wn[1]
             out.append((So * hn + Sn * ho) / (ho + hn))
@@ -450,7 +450,8 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
         du_grids.append(outA[..., :ncomp])
         G3 = outA[..., ncomp]
         U3 = outA[..., ncomp + 1]
-        nu3 = torch.maximum(nu3, ((1e-7 + G3.abs()) / (1e-7 + U3))[..., None])
+        nu3 = torch.maximum(
+            nu3, ((1e-7 + abs_select(G3)) / (1e-7 + U3))[..., None])
         if with_dt:
             dt_bound = dt_bound + outA[..., ncomp + 2]
 

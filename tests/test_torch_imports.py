@@ -64,6 +64,12 @@ def test_scan_covers_the_2d_modules():
              "ibx_torch/cases/rae2822_rans.py",
              "ibx_torch/cases/flat_plate.py",
              "ibx_torch/topology/__init__.py"}
+    # solver acceleration, checkpoints and the monitor
+    want |= {f"ibx_torch/solve/{m}.py" for m in (
+        "interp_util", "mgrid", "multigrid_domain", "fas", "fas_euler",
+        "point_implicit", "point_implicit_euler")}
+    want |= {"ibx_torch/io/__init__.py", "ibx_torch/io/checkpoint.py",
+             "ibx_torch/utils/__init__.py", "ibx_torch/utils/monitor.py"}
     assert want <= names, want - names
     for f in _port_files():
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -80,17 +86,16 @@ def test_scan_covers_the_2d_modules():
 # names of `ibx.<pkg>.__all__` the port does not have yet, each with the
 # ROADMAP item that ports it
 NOT_PORTED = {
-    "solve": dict.fromkeys(
-        ["fas", "FasEuler", "point_implicit_step", "Multigrid",
-         "coarsener_and_prolongator", "multigrid_levels", "DomainHierarchy",
-         "multigrid", "Linearization", "PIPreconditioner",
-         "hutchinson_block_diagonal", "linearize", "solve"],
-        "ROADMAP queue 1 item 7 (solver acceleration)"),
+    "io": dict.fromkeys(
+        ["write_vtp", "write_vtr", "export_vtk", "export_mesh_vtk"],
+        "ROADMAP queue 1 item 10 (io/vtk.py)"),
+    "utils": dict.fromkeys(
+        ["pytree_dataclass"], "ROADMAP queue 1 item 10 (utils/pytree.py)"),
 }
 
 
 @pytest.mark.parametrize("pkg", ["physics", "topology", "solve", "cases",
-                                 "ops", "geometry"])
+                                 "ops", "geometry", "io", "utils"])
 def test_subpackage_exports_match_ibx(pkg):
     """Every name of ``ibx.<pkg>.__all__`` exists in ``ibx_torch.<pkg>``
     (and in its ``__all__``), or is on the not-ported list; a listed name
