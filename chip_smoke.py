@@ -54,7 +54,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      both marches, and the viscous pair with an `mu_t` field;
  13. the gather march at full width: `build_rae2822(wall_h=5e-4,
      feature_h=2.5e-4, cfl=0.7, block_size=16, use_blocks=False)` (881,152
-     cells) restarted from the oracle's state, 2 warm-up steps, then 300
+     cells) restarted from the oracle's state, 2 warm-up steps, then 150
      steps timed with CUDA events and the host clock; Cl in the committed
      band, the four kernel counters 0, peak memory, and the card's busy
      time a step from `torch.profiler`, printed beside the block march's
@@ -81,7 +81,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (wall_h=4e-3), 800 steps, no pressure collapse;
  20. RANS at the cases' default sizes: `build_rae2822_rans()` (242,176
      cells) and `build_flat_plate()` (105,984 cells), each on the block and
-     the gather march, 2 warm-up steps then 100 steps timed with CUDA
+     the gather march, 2 warm-up steps then 50 steps timed with CUDA
      events and the host clock, the card's busy time a step from
      `torch.profiler`, build s and peak memory, Cl/Cd and mid-chord Cf for
      the airfoil, and the four kernel counters 0 (no kernel lies on RANS);
@@ -112,7 +112,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and a finite state, the solved-cell residual under 3x its start
      (tests/test_point_implicit_euler.py), ms a step; the four kernel
      counters stay 0 over phases 21-23;
-then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
+ 24. the multi-device runtime on four ranks (after phase 23): four gloo
+     ranks spawned on the one card (NCCL refuses two ranks on one device),
+     each with its own process: `build_rae2822_block_sharded(4)` at
+     wall_h=4e-2, 5 steps against the single-device block march on the
+     card, plain and with `overlap=True` (2e-5 per channel, resnorm 1e-3,
+     no kernel launched); `build_rae2822_sharded(4)` 3 steps against its
+     step on one partition (1e-5); `build_sphere3d_block_sharded(4)`
+     (wall_h=0.1, bs=8) on the channel-split march, 1 step (1e-4) and 5
+     steps (1e-3) against the single-device march, each rank launching
+     passes A and B and the update twice a step and the fold never, passes
+     A and B against their plain versions on each rank's local grid; each
+     rank prints its local grid, halo and offsets and times its exchange;
+ 25. the flagship on one rank (in phase 10's place, NCCL, this process):
+     `build_rae2822_block_sharded(1, case=<phase 9's case>, overlap=True)`
+     from the oracle's state, 2 warm-up and 300 timed steps, Cl in the
+     band, no kernel launched, ms a step, peak memory and the card's busy
+     time beside phases 9 and 10;
+ 26. the production sphere on one rank (after phase 7, NCCL, this
+     process): `build_sphere3d_block_sharded(1, case=<phase 5's case>)`,
+     2 warm-up and 20 timed steps launching 2/2/2 kernels a step and no
+     fold, ms a step, busy time (beside the single-device march's) and
+     peak memory, and 5 steps within 1e-6 of the single-device
+     channel-split march;
+then one JSON line of per-kernel numbers (with each kernel's launches a
+step on the sharded channel-split march), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -121,6 +145,7 @@ available or when the ibx_torch package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -161,7 +186,7 @@ RAE_FLAGSHIP = dict(wall_h=5e-4, feature_h=2.5e-4, cfl=0.7, block_size=16)
 RAE_CELLS = 881_152
 RAE_ORACLE = "tests/data/rae2822_cp_flagship.npz"
 RAE_WINDOW = 500
-GATHER_STEPS = 300
+GATHER_STEPS = 150
 # gather vs block (the limits of tests/test_block_ops.py and
 # tests/test_viscous.py): R per channel over the channel's max + 1e-3
 GVB_RHS_TOL = 2e-4
@@ -198,9 +223,22 @@ VERDICT_ITERS = 25
 FAS_FULL_CALLS = 5
 FAS_FULL_ITERS = 10
 PI_STEPS = 3
+# the multi-device runtime (phases 24-26)
+SHARD_RANKS = 4
+SHARD_RAE = dict(wall_h=4e-2, feature_h=2e-2, cfl=0.7)   # 21,760 cells
+SHARD_STEPS = 5
+SHARD_BLOCK_TOL = 2e-5   # 5 sharded block steps vs one device, per channel
+SHARD_RES_RTOL = 1e-3
+SHARD_GATHER_STEPS = 3
+SHARD_GATHER_TOL = 1e-5
+SHARD_SPHERE_WALL_H = 0.1    # bs=8, 348,160 cells
+SHARD_SPHERE_TOL = {1: 1e-4, 5: 1e-3}
+SHARD_FULL_STEPS = 300       # phase 25, the flagship on one rank
+SHARD_SPHERE_STEPS = 20      # phase 26, the production sphere on one rank
+SHARD_ONE_RANK_TOL = 1e-6    # one rank vs one device, 5 steps
 RANS_CELLS = 242_176
 PLATE_CELLS = 105_984
-RANS_STEPS = 100
+RANS_STEPS = 50
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
@@ -568,6 +606,9 @@ def rae2822_phases(root, dev, smi):
     acts, busy_ms, wall_ms = profile_busy(lambda: case.march(P, 5), 5,
                                           "breakdown2d", ms_step)
     log(f"[2d] card: {smi}")
+    t0 = time.perf_counter()
+    sharded_flagship(root, case, smi, dict(ms_step=ms_step, busy_ms=busy_ms))
+    log(f"[shard25] phase 25 took {time.perf_counter() - t0:.1f} s")
     return dict(ms_step=ms_step, host_ms=sum(host_w) / 2, busy_ms=busy_ms,
                 activities=acts, peak=peak - base,
                 build_seconds=case.build_seconds, cl=cl, cd=cd,
@@ -1357,7 +1398,8 @@ def interface_sides(bt):
 
 def sphere_phases(dev):
     """Phases 3-7: the 3D sphere marches and their four kernels; returns
-    the rows of the kernels line and the two marches' ms a step."""
+    the rows of the kernels line, the two marches' ms a step and the
+    main-path case (phase 26 marches it before it is freed)."""
     from ibx_torch.cases import build_sphere3d
     from ibx_torch.ops import kernels as K
 
@@ -1599,7 +1641,316 @@ def sphere_phases(dev):
         f"each:")
     for label, fn in parts.items():
         log(f"  {label}: {time_ms(fn):.4f} ms")
-    return rows, dict(cs_ms_step=ms_step, grid_ms_step=g_ms_step)
+    return rows, dict(cs_ms_step=ms_step, grid_ms_step=g_ms_step), case
+
+
+@contextlib.contextmanager
+def one_rank_group(backend):
+    """A process group of one rank (this process) over a ``file://`` store
+    in a temporary directory, destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, init_method="file://" + str(Path(tmp) / "store"),
+            world_size=1, rank=0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def gather_step_one(case, P):
+    """The sharded gather march's step (`build_rae2822_sharded`) on the
+    one partition of ``case`` (a one-partition gather case): each BC
+    family in turn by `Domain.impose_bc`, RK2 on `euler_rhs` with the
+    local time step, no freeze mask, BCs after each stage."""
+    from ibx_torch.physics.bc import apply_flow_bc, flow_bc
+    from ibx_torch.physics.fluid import primitive2state, state2primitive
+    from ibx_torch.solve.euler import euler_rhs, local_timestep
+
+    dom, fl, dev = case.dom, case.fluid, P.device
+    fns = {"farfield": flow_bc(fl, case.P_inf, device=dev),
+           "wall": flow_bc(fl, [float(case.P_inf[0]),
+                                float(case.P_inf[1]), 0.0],
+                           normal_flow=True, device=dev)}
+
+    def bcs(P):
+        for name in ("farfield", "wall"):
+            P = dom.impose_bc(
+                name, lambda b, Pi, bc=fns[name]: apply_flow_bc(
+                    bc, Pi, b.normals), P)
+        return P
+
+    part = dom.partitions[0]
+    P = bcs(P)
+    dt = local_timestep(part, fl, P, case.cfl)[:, None]
+    Q0 = primitive2state(fl, P)
+    R0 = euler_rhs(part, fl, P)
+    P1 = bcs(state2primitive(fl, Q0 + dt * R0))
+    R1 = euler_rhs(part, fl, P1)
+    return bcs(state2primitive(fl, Q0 + dt * (R0 + R1) / 2))
+
+
+def _sharded_rank(device, smi):
+    """Phase 24 on one of four ranks (spawned; gloo with CUDA tensors, all
+    on the one card): the sharded marches against the single-device ones
+    on the card, the kernels' launches and the kernels against their plain
+    versions on this rank's local grid."""
+    import torch.distributed as dist
+
+    from ibx_torch.cases import (build_rae2822, build_rae2822_block_sharded,
+                                 build_rae2822_sharded, build_sphere3d,
+                                 build_sphere3d_block_sharded)
+    from ibx_torch.ops import kernels as K
+
+    rank = dist.get_rank()
+    dev = torch.device(device)
+    zero = dict.fromkeys(K.launches, 0)
+
+    def rlog(*a):
+        log(f"[ranks {rank}]", *a)
+
+    def rcheck(name, value, tol):
+        ok = value < tol
+        rlog(f"{name}: {value:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rank {rank}: {name}: {value:.3e}")
+
+    # the block march (2D, no kernel), plain and with the overlap split
+    case = build_rae2822(device=dev, **SHARD_RAE)
+    P, res = case.P0, None
+    for _ in range(SHARD_STEPS):
+        P, res = case.step(P)
+    ref, res_ref = P.cpu(), float(res)
+    K.reset_launches()
+    for overlap in (False, True):
+        sbd, step, P, _ = build_rae2822_block_sharded(
+            SHARD_RANKS, case=case, cfl=case.cfl, overlap=overlap)
+        assert sbd.mesh.staged == (dev.type == "cuda")
+        assert sbd.overlap == overlap
+        if not overlap:
+            rlog(f"RAE2822 {SHARD_RAE}: {case.dom.ncells} cells, "
+                 f"{sbd.B} blocks, chunk {sbd.chunk}, B_loc {sbd.B_loc}, "
+                 f"{len(sbd.halo[rank])} halo blocks, offsets {sbd.offs}")
+        for _ in range(SHARD_STEPS):
+            P, res = step(P)
+        out = torch.as_tensor(sbd.collect(P))
+        rcheck(f"block march, overlap={overlap}, {SHARD_STEPS} steps vs "
+               f"one device (per channel)", chan_err(ref, out),
+               SHARD_BLOCK_TOL)
+        rcheck("resnorm (relative)", abs(float(res) - res_ref) / res_ref,
+               SHARD_RES_RTOL)
+    assert dict(K.launches) == zero, K.launches
+
+    # the gather march (no kernel), from the sharded case's initial state,
+    # against its scheme on one partition (family-by-family BCs, no freeze
+    # mask: the JAX package's sharded step)
+    sdom, gstep, P, _ = build_rae2822_sharded(SHARD_RANKS, device=dev,
+                                              **SHARD_RAE)
+    one = build_rae2822(use_blocks=False, device=dev, **SHARD_RAE)
+    Pg = torch.as_tensor(sdom.collect(P), device=dev)
+    rlog(f"gather march: n_own {sdom.n_own}, skirt {sdom.n_skirt} rows, "
+         f"offsets {list(sdom.offsets)}")
+    for _ in range(SHARD_GATHER_STEPS):
+        (P,) = gstep(P)
+        Pg = gather_step_one(one, Pg)
+    rcheck(f"gather march, {SHARD_GATHER_STEPS} steps vs one device (per "
+           f"channel)", chan_err(Pg.cpu(), torch.as_tensor(sdom.collect(P))),
+           SHARD_GATHER_TOL)
+    assert dict(K.launches) == zero, K.launches
+    del case, one
+
+    # the 3D sphere on the channel-split march: passes A and B and the
+    # update on this rank's local grid and own chunk
+    sph = build_sphere3d(wall_h=SHARD_SPHERE_WALL_H, device=dev)
+    ref = {1: sph.step(sph.P0)[0].cpu(), 5: sph.march(sph.P0, 5).cpu()}
+    sbd, step, P, _ = build_sphere3d_block_sharded(SHARD_RANKS, case=sph,
+                                                   cfl=sph.cfl)
+    bt = sbd.bt
+    rlog(f"sphere wall_h={SHARD_SPHERE_WALL_H}: {sph.dom.ncells} cells, "
+         f"{sbd.B} blocks of {sbd.bs}^3, chunk {sbd.chunk}, B_loc "
+         f"{sbd.B_loc}, {len(sbd.halo[rank])} halo blocks, offsets "
+         f"{sbd.offs}, {bt.n_sparse} leftover faces on the local grid, "
+         f"channel-split {sbd.use_cs}")
+    assert sbd.use_cs
+    K.reset_launches()
+    outs = {}
+    for i in range(5):
+        P, res = step(P)
+        if i in (0, 4):
+            outs[i + 1] = torch.as_tensor(sbd.collect(P))
+    launches = dict(K.launches)
+    want = dict(rk2_update=2, euler_pass_a=2, euler_pass_b=2,
+                euler_pass_b_fold=0)
+    if dev.type == "cuda":
+        assert launches == {k: 5 * n for k, n in want.items()}, launches
+    else:
+        assert launches == zero, launches
+    rlog(f"sphere launches over 5 steps {launches}")
+    for n, tol in SHARD_SPHERE_TOL.items():
+        rcheck(f"sphere channel-split, {n} step(s) vs one device (per "
+               f"channel)", chan_err(ref[n], outs[n]), tol)
+    loc = sbd.exchange(P)
+    fl = sph.fluid
+    du, aux = K.euler_pass_a(fl, loc, bt.meta, bt.nbr_table, with_dt=True)
+    du_r, aux_r = K.euler_pass_a_ref(fl, loc, bt.meta, bt.nbr_table,
+                                     with_dt=True)
+    rcheck("euler_pass_a du on the local grid", chan_err(du_r, du),
+           TOL["du"])
+    rcheck("euler_pass_a aux on the local grid", chan_err(aux_r, aux),
+           TOL["aux"])
+    nu = torch.full_like(aux[:, :1], 1e-7)
+    for d in range(3):
+        nu = torch.maximum(nu, (1e-7 + aux[:, d:d + 1].abs())
+                           / (1e-7 + aux[:, 3 + d:4 + d]))
+    R = K.euler_pass_b(fl, loc, du, nu, bt.meta, bt.nbr_table,
+                       high_order=True)
+    R_r = K.euler_pass_b_ref(fl, loc, du, nu, bt.meta, bt.nbr_table,
+                             high_order=True)
+    rcheck("euler_pass_b R on the local grid", chan_err(R_r, R), TOL["R"])
+    # the exchange alone: staged through host tensors under gloo
+    nbytes = sum(sbd.S[o] for o in sbd.offs) * P[0].numel() * 4
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sbd.exchange(P)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rlog(f"exchange of {nbytes} bytes received a rank: "
+         f"{(time.perf_counter() - t0) / 10 * 1e3:.3f} ms a call (host "
+         f"clock, 10 calls; gloo, staged through host tensors "
+         f"{sbd.mesh.staged}); card: {smi}")
+
+
+def sharded_ranks(smi):
+    """Phase 24: four gloo ranks on the one card (NCCL refuses two ranks
+    on one device), asked for explicitly."""
+    from ibx_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    spawn(_sharded_rank, SHARD_RANKS, backend="gloo", device="cuda",
+          args=("cuda", smi), threads=2)
+    log(f"[ranks] phase 24 ({SHARD_RANKS} gloo ranks on one card) took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def sharded_flagship(root, case, smi, blk):
+    """Phase 25: the 881,152-cell flagship through the sharded block march
+    on one rank (NCCL, this process), beside the single-device block
+    march's numbers of phases 9 and 10 (``blk``)."""
+    from ibx_torch.cases import build_rae2822_block_sharded
+    from ibx_torch.cases import force_coefficients
+    from ibx_torch.ops import kernels as K
+
+    zero = dict.fromkeys(K.launches, 0)
+    with one_rank_group("nccl"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sbd, step, _, _ = build_rae2822_block_sharded(
+            1, case=case, cfl=case.cfl, overlap=True)
+        build_s = time.perf_counter() - t0
+        assert not sbd.overlap and sbd.mesh.backend == "nccl"
+        ref = np.load(root / RAE_ORACLE)
+        P = sbd.distribute(case.apply_bcs(
+            torch.as_tensor(ref["P"], device=case.P0.device)))
+        P = sbd.march(P, 2)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        P = sbd.march(P, SHARD_FULL_STEPS)
+        e1.record()
+        e1.synchronize()
+        host_ms = (time.perf_counter() - t0) / SHARD_FULL_STEPS * 1e3
+        ms_step = e0.elapsed_time(e1) / SHARD_FULL_STEPS
+        launches = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated()
+        Pf = torch.as_tensor(sbd.collect(P), device=case.P0.device)
+        finite = bool(torch.isfinite(Pf).all())
+        cl, cd = force_coefficients(case, Pf)
+        log(f"[shard25] build_rae2822_block_sharded(1, overlap=True) on the "
+            f"{case.dom.ncells}-cell flagship: tables {build_s:.1f} s, "
+            f"B_loc {sbd.B_loc} (chunk {sbd.chunk} + dump), overlap "
+            f"{sbd.overlap} at one rank; {SHARD_FULL_STEPS} steps from the "
+            f"oracle: {ms_step:.3f} ms/step (CUDA events; host clock "
+            f"{host_ms:.3f}), Cl {cl:.5f}, Cd {cd:.5f}, finite {finite}, "
+            f"peak memory {peak / 2**30:.3f} GiB over its build and march "
+            f"({base / 2**30:.3f} GiB held before them), launches "
+            f"{launches}")
+        assert finite, "non-finite state on the one-rank sharded march"
+        assert launches == zero, launches
+        assert CL_BAND[0] < cl < CL_BAND[1], cl
+        _, busy_ms, _ = profile_busy(lambda: sbd.march(P, 5), 5, "shard25",
+                                     ms_step)
+    log(f"[shard25] one rank vs one device (phases 9-10 of this run): "
+        f"{ms_step:.3f} vs {blk['ms_step']:.3f} ms/step, device busy "
+        f"{busy_ms:.3f} vs {blk['busy_ms']:.3f} ms a step; card: {smi}")
+
+
+def sharded_sphere_full(case, smi, cs_ms_step):
+    """Phase 26: the 5,308,416-cell sphere through the sharded
+    channel-split march on one rank (NCCL, this process); returns its
+    kernel launches a step."""
+    from ibx_torch.cases import build_sphere3d_block_sharded
+    from ibx_torch.ops import kernels as K
+
+    _, busy_one, _ = profile_busy(lambda: case.march(case.P0, 3), 3,
+                                  "shard26-one-device", cs_ms_step)
+    with one_rank_group("nccl"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sbd, step, P0, _ = build_sphere3d_block_sharded(1, case=case,
+                                                        cfl=case.cfl)
+        build_s = time.perf_counter() - t0
+        assert sbd.use_cs and sbd.B_loc == sbd.B + 1
+        P = sbd.march(P0, 2)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        P = sbd.march(P, SHARD_SPHERE_STEPS)
+        e1.record()
+        e1.synchronize()
+        host_ms = (time.perf_counter() - t0) / SHARD_SPHERE_STEPS * 1e3
+        ms_step = e0.elapsed_time(e1) / SHARD_SPHERE_STEPS
+        launches = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(P).all())
+        log(f"[shard26] build_sphere3d_block_sharded(1) on the "
+            f"{case.dom.ncells}-cell sphere: tables {build_s:.1f} s, B_loc "
+            f"{sbd.B_loc}; {SHARD_SPHERE_STEPS} steps: {ms_step:.3f} "
+            f"ms/step (CUDA events; host clock {host_ms:.3f}), finite "
+            f"{finite}, peak memory {peak / 2**30:.2f} GiB over its build "
+            f"and march ({base / 2**30:.2f} GiB held before them), "
+            f"launches {launches}")
+        assert finite
+        want = dict(rk2_update=2, euler_pass_a=2, euler_pass_b=2,
+                    euler_pass_b_fold=0)
+        assert launches == {k: n * SHARD_SPHERE_STEPS
+                            for k, n in want.items()}, launches
+        _, busy_ms, _ = profile_busy(lambda: sbd.march(P, 3), 3, "shard26",
+                                     ms_step)
+        out = torch.as_tensor(sbd.collect(sbd.march(P0, 5)))
+        ref = case.march(case.P0, 5).cpu()
+        log("[shard26] 5 steps on one rank vs the single-device "
+            "channel-split march")
+        check("state (per channel)", chan_err(ref, out), SHARD_ONE_RANK_TOL)
+    log(f"[shard26] one rank vs one device (phase 5 of this run): "
+        f"{ms_step:.3f} vs {cs_ms_step:.3f} ms/step, device busy "
+        f"{busy_ms:.3f} vs {busy_one:.3f} ms a step; card: {smi}")
+    return {k: launches[k] // SHARD_SPHERE_STEPS for k in launches}
 
 
 def main() -> int:
@@ -1634,9 +1985,15 @@ def main() -> int:
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    rows, blk3d = sphere_phases(dev)
+    rows, blk3d, case3d = sphere_phases(dev)
+    t0 = time.perf_counter()
+    shard = sharded_sphere_full(case3d, smi, blk3d["cs_ms_step"])
+    for r in rows:
+        r["sharded_launches_per_step"] = shard[r["name"]]
+    log(f"[shard26] phase 26 took {time.perf_counter() - t0:.1f} s")
     # the sphere's tensors are no longer needed: free them before the 2D
     # phases, so that their peak memory is their own
+    del case3d
     gc.collect()
     torch.cuda.empty_cache()
     blk = rae2822_phases(root, dev, smi)
@@ -1654,6 +2011,9 @@ def main() -> int:
     t0 = time.perf_counter()
     solver_phases(root, dev, smi)
     log(f"[solve] phases 21-23 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_ranks(smi)
 
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,9 +6,12 @@ from .flat_plate import (
     skin_friction_profile,
 )
 from .rae2822 import Rae2822Case, build_rae2822, force_coefficients, wall_cp
+from .rae2822_block_sharded import build_rae2822_block_sharded
 from .rae2822_rans import (Rae2822RansCase, build_rae2822_rans,
                            wall_skin_friction)
+from .rae2822_sharded import build_rae2822_sharded
 from .sphere3d import Sphere3dCase, build_sphere3d
+from .sphere3d_block_sharded import build_sphere3d_block_sharded
 
 __all__ = [
     "FlatPlateCase",
@@ -17,8 +20,11 @@ __all__ = [
     "Sphere3dCase",
     "build_flat_plate",
     "build_rae2822",
+    "build_rae2822_block_sharded",
     "build_rae2822_rans",
+    "build_rae2822_sharded",
     "build_sphere3d",
+    "build_sphere3d_block_sharded",
     "cf_prandtl",
     "cf_schultz_grunow",
     "force_coefficients",

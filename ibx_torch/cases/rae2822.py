@@ -100,8 +100,11 @@ class Rae2822Case:
     def _gather_step(self, P):
         if self.dom.n_partitions != 1:
             raise NotImplementedError(
-                "Rae2822Case: the sharded step over n_partitions > 1 is "
-                "not ported to ibx_torch yet (ROADMAP queue 1 item 8)")
+                "Rae2822Case: the case's own step marches one partition; "
+                "the multi-partition march is "
+                "ibx_torch.cases.build_rae2822_sharded (one rank a "
+                "partition), as in the JAX package, whose case.step fails "
+                "there too")
         return rk2_step(self.dom.partitions[0], self.fluid, P,
                         self.flat_bcs, cfl=self.cfl,
                         high_order=self.high_order, active=self.active)
@@ -176,7 +179,8 @@ def build_rae2822(
     ``use_blocks=False`` takes the generic gather march; ``n_partitions >
     1`` builds the domain with its partitions and the family-by-family
     ghost BC (`Domain.impose_bc`) as the JAX package does, but its step
-    raises: the sharded march is not ported. ``mirror_wall`` exists on the
+    raises: `build_rae2822_sharded` marches that domain, one rank a
+    partition. ``mirror_wall`` exists on the
     gather march only (through `FusedBoundary`), and the flagged cut-cell
     wall ``cutcell`` is not ported."""
     device = require_device("build_rae2822", device)
@@ -247,7 +251,8 @@ def build_rae2822(
         case.active = torch.as_tensor(solved_mask.astype(np.float32),
                                       device=device)
         case.flat_bcs = _flat_bcs(dom, stl, bc_fns, mirror_wall, device)
-        dom.partitions              # built here, inside build_seconds
+        if n_partitions == 1:
+            dom.partitions          # built here, inside build_seconds
     case.P0 = case.apply_bcs(torch.as_tensor(P0, device=device))
     if device.type == "cuda":
         torch.cuda.synchronize(device)

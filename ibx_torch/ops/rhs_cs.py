@@ -103,6 +103,45 @@ def _cols_add_cs(bt: BlockTables, Xc, cols, d: int, ch0: int, ch1: int,
         _edge_plane(X5, d, bs - 1 if s else 0).index_add_(0, blocks, add)
 
 
+def _cs_cells(Xc, c0: int, c1: int, idx):
+    """Rows [F, c1 - c0] of channels [c0, c1) of the channel-split ``Xc``
+    at flat cell ids ``idx`` (block-major, w = z*bs^2 + y*bs + x)."""
+    npb = Xc.shape[2] * Xc.shape[3]
+    return Xc[:, c0:c1].reshape(Xc.shape[0], c1 - c0, npb)[
+        idx // npb, :, idx % npb]
+
+
+def _cs_cells_add(Xc, c0: int, vals, idx) -> None:
+    """Add ``vals`` [F, k] into channels [c0, c0 + k) of ``Xc`` at flat
+    cell ids ``idx``, in place (`index_add_`: repeated cells sum)."""
+    C, npb = Xc.shape[1], Xc.shape[2] * Xc.shape[3]
+    ch = torch.arange(c0, c0 + vals.shape[1], device=idx.device)
+    flat = ((idx // npb)[:, None] * C + ch) * npb + (idx % npb)[:, None]
+    Xc.view(-1).index_add_(0, flat.reshape(-1), vals.reshape(-1))
+
+
+def _leftover_add(bt: BlockTables, d: int, rows: Callable,
+                  face_fn: Callable, signed_mask: Sequence[float],
+                  targets: Sequence) -> None:
+    """Generic sparse leftover faces of dim ``d``, added in place: the
+    counterpart of `block_ops._sparse_accum` on channel-split operands.
+    ``rows(idx)`` gives the operands' rows at flat cell ids; face value
+    column range ``(k0, k1)`` goes to channels ``c0..`` of ``Xc`` for each
+    ``(Xc, c0, k0, k1)`` in ``targets``. The kernels mask these faces out
+    (their block sides are neither dense nor structured 2:1)."""
+    o, n = bt.sp_owner[d], bt.sp_neighbor[d]
+    sp = bt.spacing_flat[:, d]
+    so, sn = sp[o][:, None], sp[n][:, None]
+    vals = face_fn(rows(o), rows(n), so, sn)
+    pm = torch.where(torch.as_tensor(signed_mask, dtype=vals.dtype,
+                                     device=vals.device) > 0, -1.0, 1.0)
+    to_o = bt.sp_wr[d][:, None] * vals / so
+    to_n = bt.sp_wl[d][:, None] * vals * pm / sn
+    for Xc, c0, k0, k1 in targets:
+        _cs_cells_add(Xc, c0, to_o[:, k0:k1], o)
+        _cs_cells_add(Xc, c0, to_n[:, k0:k1], n)
+
+
 def pallas_eligible(bt: BlockTables, *, viscous: bool = False, fix3=None,
                     cut3=None, frozen=None, mu_t3=None) -> bool:
     """Static gate of the kernel route (`ibx/ops/pallas_rhs.py`
@@ -156,6 +195,22 @@ def gradients_cs(bt: BlockTables, fluid: Fluid, Pc, *, with_dt: bool,
         if with_dt:
             _cols_add_cs(bt, aux, cols, d, 2 * nd + d, 2 * nd + d + 1, 7)
 
+    for d in range(nd):
+        if not bt.sp_owner[d].shape[0]:
+            continue
+        if with_dt:
+            def rowsA(idx, d=d):
+                pp = _cs_cells(Pc, 0, ncomp, idx)
+                Sd = pp[:, 2 + d].abs() + speed_of_sound(fluid, pp[:, 1])
+                return torch.cat([pp, Sd[:, None]], dim=-1)
+        else:
+            def rowsA(idx):
+                return _cs_cells(Pc, 0, ncomp, idx)
+        tg = [(du_cs, d * 5, 0, 5), (aux, d, 5, 6), (aux, nd + d, 6, 7)]
+        if with_dt:
+            tg.append((aux, 2 * nd + d, 7, 8))
+        _leftover_add(bt, d, rowsA, face_A, signedA, tg)
+
     nu_cs = torch.full((B, 1, bs, bs * bs), 1e-7, dtype=Pc.dtype,
                        device=Pc.device)
     for d in range(nd):
@@ -182,13 +237,15 @@ def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
     fold kernel instead of adding them to ``du_cs``; ``with_frozen`` turns
     it off, since it hands ``du_cs`` out. The kernels cover the dense and
     the structured 2:1 faces only: tables with generic sparse leftover
-    faces raise (`pallas_eligible` keeps them off this route)."""
-    if bt.n_sparse:
-        raise ValueError("euler_rhs_cs: the channel-split kernels do not "
-                         "cover generic sparse leftover faces")
+    faces are masked out of the kernels' results and added by torch ops
+    (`_leftover_add`) after each pass, with the gradient corrections
+    pre-added (no fold). The JAX package's route has no such faces
+    (`pallas_eligible` keeps them off it); the sharded block march's
+    local grids have them at halo blocks
+    (`ibx_torch.parallel.block_sharding`)."""
     nd, bs = bt.nd, bt.block_size
     ncomp = Pc.shape[1]
-    fold = fold and not with_frozen
+    fold = fold and not with_frozen and not bt.n_sparse
     du_cs, aux, nu_cs, cols6 = gradients_cs(bt, fluid, Pc, with_dt=with_dt,
                                             fold=fold)
     Rc = euler_pass_b(fluid, Pc, du_cs, nu_cs, bt.meta, bt.nbr_table,
@@ -216,6 +273,18 @@ def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
         face_B = bo.cat_fn(bo.face_b(fluid, high_order, d), [ncomp, 5, 1])
         cols = bo.interface_corrections(bt, d, face_B, [1.0] * ncomp, fetchB)
         _cols_add_cs(bt, Rc, cols, d, 0, ncomp)
+    for d in range(nd):
+        if not bt.sp_owner[d].shape[0]:
+            continue
+
+        def rowsB(idx, d=d):
+            return torch.cat([_cs_cells(Pc, 0, ncomp, idx),
+                              _cs_cells(du_cs, d * 5, (d + 1) * 5, idx),
+                              _cs_cells(nu_cs, 0, 1, idx)], dim=-1)
+
+        face_B = bo.cat_fn(bo.face_b(fluid, high_order, d), [ncomp, 5, 1])
+        _leftover_add(bt, d, rowsB, face_B, [1.0] * ncomp,
+                      [(Rc, 0, 0, ncomp)])
 
     out = [Rc]
     if with_dt:

@@ -1,0 +1,61 @@
+"""Launch an SPMD function on ``world_size`` local ranks.
+
+`spawn` starts one process a rank with `torch.multiprocessing.spawn`,
+joins them into one process group over a ``file://`` store in a
+temporary directory (no port is opened), runs ``fn(*args)`` on every rank
+and destroys the group. Inside ``fn``, `make_device_mesh` reads the mesh
+from the group. The same code runs under ``torchrun`` with its own
+``init_process_group`` call.
+
+    from ibx_torch.parallel import spawn
+    spawn(run, 4, backend="gloo", device="cpu", args=(n_steps,))
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from ..topology.domain import require_device
+
+
+def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
+               init_method: str, threads: int, args: Sequence) -> None:
+    torch.set_num_threads(threads)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank)
+    try:
+        fn(*args)
+        # no rank tears its connections down while a peer still sends
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world_size: int, *, backend: Optional[str] = None,
+          device="cuda", args: Sequence = (),
+          threads: Optional[int] = None) -> None:
+    """Run ``fn(*args)`` on ``world_size`` ranks, each in its own process.
+
+    ``backend`` defaults to ``nccl`` when ``device`` is CUDA and to
+    ``gloo`` on the CPU; ``gloo`` with a CUDA device puts every rank on
+    the card with host-staged collectives (NCCL refuses two ranks on one
+    device). ``device`` picks only the default backend: ``fn`` passes its
+    device to the builders itself. ``threads`` (default: the CPU count
+    over ``world_size``, at least 1) is each rank's
+    `torch.set_num_threads`. ``fn`` must be importable (a module-level
+    function). A rank that raises makes `spawn` raise."""
+    device = require_device("spawn", device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if threads is None:
+        threads = max(1, (os.cpu_count() or 1) // world_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        mp.spawn(_rank_main, nprocs=world_size, join=True,
+                 args=(fn, world_size, backend, init, threads, tuple(args)))

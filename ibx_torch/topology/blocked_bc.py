@@ -14,6 +14,9 @@ number of channels (RANS hands the fused ``[p T u.. Rt]`` state).
 The TPU write-back machinery of `ibx/topology/blocked_bc.py` (16-slot
 tiles, phase views, union buffer, dense planes) exists for the TPU's
 scatter cost and is not ported: here the write-back is one `index_put_`.
+`local_ghost_bc` is the sharded block march's per-rank `GhostBC` (the
+counterpart of `build_blocked_bc_stacked` / `local_blocked_bc`): a rank's
+own ghosts on its local block grid.
 """
 
 from __future__ import annotations
@@ -154,3 +157,31 @@ class GhostBC:
         view[self.ghost_b, self.ghost_w] = self._ghost_values(
             lambda b, w: view[b, w], fns, guard)
         return P3
+
+
+def local_ghost_bc(dom, names: Sequence[str], own_of_block, g2l, rank: int,
+                   device, dense_families: Optional[Sequence[str]] = None
+                   ) -> GhostBC:
+    """Rank ``rank``'s `GhostBC` on its local block grid (the sharded
+    block march, `ibx_torch.parallel.block_sharding`): the ghosts of
+    `_collect_families` whose block ``own_of_block`` gives to this rank,
+    with ghosts and image stencils mapped through ``g2l`` (global block ->
+    local slot) to local flat cell ids. ``dense_families`` as in
+    `GhostBC.from_numpy`."""
+    if dom.n_partitions != 1:
+        raise ValueError("build from a single-partition Domain")
+    msh = dom.mesh
+    npb = int(msh.block_size) ** msh.ndim
+    fams = _collect_families(dom, names)
+    own_of_block = np.asarray(own_of_block)
+    g2l = np.asarray(g2l)
+    sel = own_of_block[fams["ghosts"] // npb] == rank
+    f = {k: v[sel] for k, v in fams.items()}
+    gb = f["ghosts"] // npb
+    ib = f["idx"] // npb
+    assert (g2l[gb] >= 0).all(), "own ghost outside local grid"
+    assert (g2l[ib] >= 0).all(), "BC stencil escaped the halo set"
+    f["ghosts"] = g2l[gb] * npb + f["ghosts"] % npb
+    f["idx"] = g2l[ib] * npb + f["idx"] % npb
+    return GhostBC.from_numpy(f, names, npb, device,
+                              dense_families=dense_families)

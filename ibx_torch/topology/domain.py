@@ -649,6 +649,16 @@ class Domain(DomainExecutionMixin):
                       f"{self.build_timings['partitions']:.2f}s", flush=True)
         return self._partitions
 
+    def partition(self, p: int) -> Partition:
+        """Partition ``p``'s tables on the domain's device; builds that
+        one alone unless `partitions` already holds them (a rank of the
+        sharded runtime needs no other)."""
+        if self._partitions is not None:
+            return self._partitions[p]
+        return self._build_partition_tables(
+            p, self.part_domain[p], self._part_g2l[p], self.part_own_mask[p],
+            self.centers, self.widths).to(self.device)
+
     def _build_partition_tables(self, p, domain, g2l, own_mask,
                                 centers, widths) -> Partition:
         nd = self.nd

@@ -13,6 +13,12 @@ is the host's work a step at any size. It also counts the row gathers
 (`ibx_torch.ops.stencil.take_rows`) whose rows are a multiple of 16 bytes
 wide: on a CUDA tensor each of those dispatches 7 more ops (the flat index
 arithmetic: 3 launches and 4 views) than the `index_select` counted here.
+
+It then counts one step of the sharded marches on a one-rank gloo group
+in this process (`build_rae2822_block_sharded(1)` at wall_h=8e-2, and
+`build_sphere3d_block_sharded(1)` on the bs=4 sphere), beside the
+single-device step of the same case: the one-rank runtime's ops over the
+single-device march.
 """
 
 from __future__ import annotations
@@ -78,7 +84,38 @@ def main() -> int:
         print(f"{label}: {c.n} dispatched ops a step, {c.views} views, "
               f"{c.n - c.views} launches; {c.wide_gathers} row gathers of "
               f"rows a multiple of 16 bytes wide")
+    sharded_counts(cases["RAE2822 block march"][0],
+                   cases["sphere channel-split march"][0])
     return 0
+
+
+def sharded_counts(rae, sphere) -> None:
+    """One step of each sharded block march on a one-rank gloo group."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ibx_torch.cases import (build_rae2822_block_sharded,
+                                 build_sphere3d_block_sharded)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "gloo", init_method="file://" + os.path.join(tmp, "store"),
+            world_size=1, rank=0)
+        try:
+            for label, build, case in (
+                    ("RAE2822 block march", build_rae2822_block_sharded,
+                     rae),
+                    ("sphere channel-split march",
+                     build_sphere3d_block_sharded, sphere)):
+                _, step, P, _ = build(1, case=case)
+                with Count() as c:
+                    step(P)
+                print(f"{label}, sharded on one rank: {c.n} dispatched ops "
+                      f"a step, {c.views} views, {c.n - c.views} launches")
+        finally:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

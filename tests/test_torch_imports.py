@@ -70,6 +70,12 @@ def test_scan_covers_the_2d_modules():
         "point_implicit", "point_implicit_euler")}
     want |= {"ibx_torch/io/__init__.py", "ibx_torch/io/checkpoint.py",
              "ibx_torch/utils/__init__.py", "ibx_torch/utils/monitor.py"}
+    # the multi-device runtime
+    want |= {f"ibx_torch/parallel/{m}.py" for m in (
+        "__init__", "sharding", "block_sharding", "launch", "dryrun")}
+    want |= {f"ibx_torch/cases/{m}.py" for m in (
+        "rae2822_sharded", "rae2822_block_sharded",
+        "sphere3d_block_sharded")}
     assert want <= names, want - names
     for f in _port_files():
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -95,7 +101,8 @@ NOT_PORTED = {
 
 
 @pytest.mark.parametrize("pkg", ["physics", "topology", "solve", "cases",
-                                 "ops", "geometry", "io", "utils"])
+                                 "ops", "geometry", "io", "utils",
+                                 "parallel"])
 def test_subpackage_exports_match_ibx(pkg):
     """Every name of ``ibx.<pkg>.__all__`` exists in ``ibx_torch.<pkg>``
     (and in its ``__all__``), or is on the not-ported list; a listed name
@@ -128,6 +135,20 @@ def test_build_without_device_needs_cuda(monkeypatch):
             build_rae2822_rans(wall_h=8e-2, feature_h=4e-2, **kw)
         with pytest.raises(RuntimeError, match="CUDA"):
             build_flat_plate(wall_h=2e-2, **kw)
+
+
+def test_sharded_builders_without_device_need_cuda(monkeypatch):
+    """The three sharded builders run on the card unless asked otherwise:
+    without one they raise before they look for a process group."""
+    from ibx_torch.cases import (build_rae2822_block_sharded,
+                                 build_rae2822_sharded,
+                                 build_sphere3d_block_sharded)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (build_rae2822_sharded, build_rae2822_block_sharded,
+                  build_sphere3d_block_sharded):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(4)
 
 
 def test_domain_without_device_needs_cuda(monkeypatch):

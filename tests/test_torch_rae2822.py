@@ -231,8 +231,9 @@ def test_gather_mirror_wall_matches():
 def test_two_partition_build_matches():
     """``n_partitions=2`` builds the domain, its partitions and the
     family-by-family ghost BC as the JAX package does: tables bit-equal,
-    `apply_bcs` and `P0` 2e-5 per channel. The sharded step is not ported
-    and says so."""
+    `apply_bcs` and `P0` 2e-5 per channel. The case's own step refuses,
+    naming the multi-partition march (`build_rae2822_sharded`), as the
+    JAX package's own step fails there."""
     from test_torch_stencil import assert_tables_equal
 
     jx = jx_build_rae2822(n_partitions=2, **SMALL)
@@ -248,7 +249,7 @@ def test_two_partition_build_matches():
     P = perturbed(jx, seed=9)
     ref = np.asarray(jx.apply_bcs(jnp.asarray(P)))
     assert chan_err(ref, pt.apply_bcs(t(P)).numpy()) < 2e-5
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="build_rae2822_sharded"):
         pt.step(pt.P0)
 
 
