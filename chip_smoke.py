@@ -64,21 +64,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      grid march of the block case;
  15. four partitions: `dom.map` of `euler_rhs` over `Domain(n_partitions=4)`
      on the card equals the one-partition result;
- 16. the 3D gather march at full width: `build_sphere3d(wall_h=0.03,
-     cfl=0.5, block_size=16, use_blocks=False)` (5,308,416 cells), 2
-     warm-up steps, then 10 steps timed, the counters 0, and the card's
-     busy time a step, printed beside the block marches of phases 5 and 6;
+ 16. the 3D gather march at full width (right after phase 26): the
+     gather case of `build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16,
+     use_blocks=False)` (5,308,416 cells) made on phase 5's domain (its
+     fused ghost BC and partition tables), 2 warm-up steps, then 10 steps
+     timed, the counters 0, and the card's busy time a step, printed
+     beside the block marches of phases 5 and 6;
  17. RANS step parity: `build_rae2822_rans(wall_h=8e-2, feature_h=4e-2,
      block_size=8)` on the card and on the CPU, one `case.step` from a
      perturbed (P, Rt) on the block march and on the gather march;
  18. RANS block vs gather on the card at wall_h=4e-2 (67,072 cells): the
      initial states and 5 steps of each march;
  19. the reference's physical checks, there marched on the CPU: the RANS
-     airfoil at wall_h=2e-2 (87,040 cells), 400 steps (finite, eddy
-     viscosity developed, stagnation and suction Cp, mid-chord Cf) with the
-     residual of step 302 below that of step 1; the flat plate at
-     wall_h=1e-2, 300 steps, Cf within 0.2-5x Prandtl; the low-y+ plate
-     (wall_h=4e-3), 800 steps, no pressure collapse;
+     airfoil at wall_h=2e-2 (87,040 cells), 310 steps (the reference's
+     400; finite, eddy viscosity developed, stagnation and suction Cp,
+     mid-chord Cf) with the residual of step 302 below that of step 1; the
+     flat plate at wall_h=1e-2, 300 steps, Cf within 0.2-5x Prandtl; the
+     low-y+ plate (wall_h=4e-3), 400 steps (the reference's 800), no
+     pressure collapse;
  20. RANS at the cases' default sizes: `build_rae2822_rans()` (242,176
      cells) and `build_flat_plate()` (105,984 cells), each on the block and
      the gather march, 2 warm-up steps then 50 steps timed with CUDA
@@ -93,8 +96,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``g`` and its JVP, and `solve` with the CPU's preconditioner;
  22. the FAS verdict of scripts/fas_verdict2d.py, counted in calls:
      `build_rae2822(wall_h=2e-2, feature_h=1e-2, cfl=0.7, mach=0.4)`,
-     `FasEuler(max_levels=3, smoother="rk2", cfl=0.7)`, 30 calls of
-     `smooth_only` and 30 of `cycle` (n_iter=25, rtol=1e-6) from the same
+     `FasEuler(max_levels=3, smoother="rk2", cfl=0.7)`, 20 calls of
+     `smooth_only` and 20 of `cycle` (the script's 30; n_iter=25,
+     rtol=1e-6) from the same
      freestream state, the functional L2 of dt*R over the solved cells
      after each call; fas3 must reach 0.3x its peak, in at most 1/1.5 of
      smoothing's calls where smoothing reaches it too, and end under a
@@ -104,7 +108,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      march at M 0.4 (the 3-level hierarchy with each level's cells and
      build s; 5 cycles against 5 smoothing calls of n_iter=10:
      tests/test_fas_euler.py's residual and physical-range checks; ms a
-     call, peak memory, the card's busy time for one cycle); then 3
+     call, peak memory, the card's busy time for one cycle); then 2
      `point_implicit_step`s (cfl 5, relax 0.8, the freeze mask, the
      frozen limiter: the exact one's Jacobian leaves float32 beside the
      wall there, its non-finite rows are printed) on the block march from
@@ -124,9 +128,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      passes A and B and the update twice a step and the fold never, passes
      A and B against their plain versions on each rank's local grid; each
      rank prints its local grid, halo and offsets and times its exchange;
+     then the four-rank part of phase 27;
  25. the flagship on one rank (in phase 10's place, NCCL, this process):
      `build_rae2822_block_sharded(1, case=<phase 9's case>, overlap=True)`
-     from the oracle's state, 2 warm-up and 300 timed steps, Cl in the
+     from the oracle's state, 2 warm-up and 100 timed steps, Cl in the
      band, no kernel launched, ms a step, peak memory and the card's busy
      time beside phases 9 and 10;
  26. the production sphere on one rank (after phase 7, NCCL, this
@@ -135,6 +140,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      fold, ms a step, busy time (beside the single-device march's) and
      peak memory, and 5 steps within 1e-6 of the single-device
      channel-split march;
+ 27. the 3D RANS wing with FAS (workload 5) at tests/test_wing3d_fas.py's
+     size (4096 cells): `build_wing3d_rans_fas(1)` on the card against
+     the same on the CPU (one rank each, this process), 2 steps and one
+     FAS cycle (flow 1e-4 per channel, Rt 1e-3 of max |Rt|), then the JAX
+     test's physical check on the card (twice 20 steps and a cycle:
+     finite, p, T and Rt in range); inside phase 24's four gloo ranks,
+     `build_wing3d_rans_fas(4)` on the card against the one rank, 10
+     steps under 2e-5 and one cycle under 5e-5 (the JAX test's bounds);
+ 28. the wing at its defaults (466,432 cells) on one NCCL rank (this
+     process) from the converged state of tests/data/wing3d_oracle.npz:
+     its wall Cp and Cl against the oracle's (1e-4), 100 steps with Cl in
+     the oracle's tail band (mean +- 3 sigma + 1e-4 of the last quarter
+     of its history) and res_norms L2 within 0.5-2x the oracle's last,
+     one FAS cycle finite and physical; ms a step and a cycle, the card's
+     busy time, build s and peak memory;
+ 29. the block march's walls: `build_rae2822(mirror_wall=True)` and
+     `build_rae2822(cutcell=True)` at wall_h=8e-2, one step card vs CPU
+     (1e-4); the 881,152-cell flagship with `cutcell=True`, 50 steps from
+     the freestream: finite, ms a step, the card's busy time, build s;
+     the four kernel counters stay 0 over phases 27-29;
 then one JSON line of per-kernel numbers (with each kernel's launches a
 step on the sharded channel-split march), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -151,6 +176,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -206,6 +232,8 @@ RANS_REF_CELLS = 87_040
 PLATE_REF = dict(wall_h=1e-2, length=1.25, height=0.5, reynolds=6e5)
 PLATE_LOWYP = dict(wall_h=4e-3, reynolds=6e5, length=1.25, height=0.5,
                    mach=0.2, cfl=0.5)
+RANS_REF_STEPS = 310     # the reference's 400, past the residual's step 302
+PLATE_LOWYP_STEPS = 400  # the reference's 800
 # solver acceleration (phases 21-23): card vs CPU on the wall_h=8e-2
 # fixtures; the FAS verdict case of scripts/fas_verdict2d.py; the flagship
 SOLVE_SMALL = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7)
@@ -218,11 +246,11 @@ PI_CFL = 5.0             # tests/test_point_implicit_euler.py's settings
 PI_RELAX = 0.8
 VERDICT_CASE = dict(wall_h=2e-2, feature_h=1e-2, cfl=0.7, mach=0.4,
                     alpha_deg=2.31, use_blocks=False)
-VERDICT_CALLS = 30
+VERDICT_CALLS = 20           # scripts/fas_verdict2d.py's 30
 VERDICT_ITERS = 25
 FAS_FULL_CALLS = 5
 FAS_FULL_ITERS = 10
-PI_STEPS = 3
+PI_STEPS = 2
 # the multi-device runtime (phases 24-26)
 SHARD_RANKS = 4
 SHARD_RAE = dict(wall_h=4e-2, feature_h=2e-2, cfl=0.7)   # 21,760 cells
@@ -233,12 +261,30 @@ SHARD_GATHER_STEPS = 3
 SHARD_GATHER_TOL = 1e-5
 SHARD_SPHERE_WALL_H = 0.1    # bs=8, 348,160 cells
 SHARD_SPHERE_TOL = {1: 1e-4, 5: 1e-3}
-SHARD_FULL_STEPS = 300       # phase 25, the flagship on one rank
+SHARD_FULL_STEPS = 100       # phase 25, the flagship on one rank
 SHARD_SPHERE_STEPS = 20      # phase 26, the production sphere on one rank
 SHARD_ONE_RANK_TOL = 1e-6    # one rank vs one device, 5 steps
 RANS_CELLS = 242_176
 PLATE_CELLS = 105_984
 RANS_STEPS = 50
+# the 3D RANS wing with FAS, workload 5 (phases 27-28): the size of
+# tests/test_wing3d_fas.py:15 (4096 cells) and the case's defaults
+# (466,432 cells) from the converged state of tests/data/wing3d_oracle.npz
+WING_SMALL = dict(wall_h=0.25, span=0.5, farfield=2.0, block_size=8,
+                  n_coarse_iter=4)
+WING_SMALL_CELLS = 4096
+WING_STEPS = 2               # card vs CPU: 2 steps and a cycle
+WING_RANKS_STEPS = 10        # four ranks vs one: tests/test_wing3d_fas.py
+WING_MARCH_TOL = 2e-5        # :31
+WING_CYCLE_TOL = 5e-5        # :44
+WING_ORACLE = "tests/data/wing3d_oracle.npz"
+WING_CELLS = 466_432
+WING_FULL_STEPS = 100
+WING_CP_TOL = 1e-4           # wall Cp and Cl of the oracle's state
+WING_CL_TOL = 1e-4
+# the block march's mirror and cut-cell walls (phase 29)
+WALLS_SMALL = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7)   # 16,768 cells
+CUT_FULL_STEPS = 50
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
@@ -788,26 +834,31 @@ def gather_phases(root, dev, smi, blk):
           scaled_err(r1, r4), 1e-5)
 
 
-def gather3d_full(smi, blk3d):
-    """Phase 16: the production sphere on the gather march; ``blk3d`` holds
-    the ms a step of its block marches (phases 5 and 6)."""
-    from ibx_torch.cases import build_sphere3d
+def gather3d_full(smi, blk3d, case3d):
+    """Phase 16: the production sphere on the gather march, on the domain
+    of phase 5's block case ``case3d`` (`cases.sphere3d.gather_case`: what
+    `build_sphere3d(..., use_blocks=False)` builds, on the same `Domain`);
+    ``blk3d`` holds the ms a step of its block marches (phases 5 and 6)."""
+    from ibx_torch.cases.sphere3d import gather_case
     from ibx_torch.ops import kernels as K
 
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    case = build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16,
-                          use_blocks=False)
+    case = gather_case(case3d)
+    dom = case.dom
+    part = dom.partitions[0]
     assert case.dom.ncells == 5_308_416 and case.P0.device.type == "cuda"
-    part = case.dom.partitions[0]
-    log(f"[gather3d-full] build_sphere3d(wall_h=0.03, cfl=0.5, "
-        f"block_size=16, use_blocks=False): {case.dom.ncells} cells, faces "
-        f"a dim {[int(f.shape[0]) for f in part.face_owner]}, accumulator "
-        f"width {part.acc_left[0].width}; build {case.build_seconds:.1f} s; "
-        f"Domain stages "
-        + ", ".join(f"{k} {v:.1f}" for k, v in
-                    case.dom.build_timings.items()))
+    assert case.bt is None and dom is case3d.dom
+    log(f"[gather3d-full] gather_case(build_sphere3d(wall_h=0.03, cfl=0.5, "
+        f"block_size=16)), i.e. use_blocks=False on phase 5's domain: "
+        f"{case.dom.ncells} cells, faces a dim "
+        f"{[int(f.shape[0]) for f in part.face_owner]}, accumulator width "
+        f"{part.acc_left[0].width}; fused BC, partition tables and initial "
+        f"state {case.build_seconds:.1f} s (phase 5's host build "
+        f"{case3d.build_seconds:.1f} s)")
     steps = 10
     P = case.march(case.P0, 2)
     torch.cuda.synchronize()
@@ -826,14 +877,17 @@ def gather3d_full(smi, blk3d):
         f"events; host clock {host_ms:.3f}), "
         f"{case.dom.ncells / (ms_step / 1e3):.4e} cell-updates/s, finite "
         f"{finite}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-        f"{dict(K.launches)}; card: {smi}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+        f"{held / 2**30:.2f} GiB of it held before the phase, phase 5's "
+        f"block case among it), launches {dict(K.launches)}; card: {smi}")
     assert finite and not any(K.launches.values())
     _, busy_ms, _ = profile_busy(lambda: case.march(P, 2), 2,
                                  "gather3d-full", ms_step)
     log(f"[gather3d-full] beside the block marches of this run: ms/step "
         f"{ms_step:.3f} (device busy {busy_ms:.3f}) vs channel-split "
         f"{blk3d['cs_ms_step']:.3f} and grid {blk3d['grid_ms_step']:.3f}")
+    del case, part, P
+    dom._partitions = None          # the gather tables' memory back
 
 
 def rans_state(case, seed=0):
@@ -911,7 +965,7 @@ def rans_phases(dev, smi):
     P, Rt, r0 = case.step(case.P0, case.Rt0)
     P, Rt = case.march(P, Rt, 300)
     P, Rt, r1 = case.step(P, Rt)
-    P, Rt = case.march(P, Rt, 98)          # 400 steps from P0 in all
+    P, Rt = case.march(P, Rt, RANS_REF_STEPS - 302)
     finite = bool(torch.isfinite(P).all() and torch.isfinite(Rt).all())
     cp = wall_cp(case, P)
     cf = wall_skin_friction(case, P)
@@ -919,7 +973,7 @@ def rans_phases(dev, smi):
     cf_mid = float(cf[(xw > 0.2) & (xw < 0.8)].mean())
     log(f"[rans-ref] build_rae2822_rans({RANS_REF}) ({case.dom.ncells} "
         f"cells): resnorm {float(r0):.6e} at step 1, {float(r1):.6e} at "
-        f"step 302; after 400 steps finite {finite}, Rt max "
+        f"step 302; after {RANS_REF_STEPS} steps finite {finite}, Rt max "
         f"{float(Rt.max()) / case.Rt_inf:.2f} Rt_inf, Rt min "
         f"{float(Rt.min()):.3e}, wall Cp {cp.min():.4f} to {cp.max():.4f}, "
         f"mid-chord mean Cf {cf_mid:.5e} "
@@ -944,10 +998,10 @@ def rans_phases(dev, smi):
     assert sel.sum() > 10 and (ratio > 0.2).all() and (ratio < 5.0).all()
     t0 = time.perf_counter()
     plate = build_flat_plate(device=dev, **PLATE_LOWYP)
-    P, Rt = plate.march(plate.P0, plate.Rt0, 800)
+    P, Rt = plate.march(plate.P0, plate.Rt0, PLATE_LOWYP_STEPS)
     finite = bool(torch.isfinite(P).all() and torch.isfinite(Rt).all())
     log(f"[rans-ref] build_flat_plate({PLATE_LOWYP}) ({plate.dom.ncells} "
-        f"cells), 800 steps: finite {finite}, min p "
+        f"cells), {PLATE_LOWYP_STEPS} steps: finite {finite}, min p "
         f"{float(P[:, 0].min()):.1f}, max |u| "
         f"{float(P[:, 2:].abs().max()):.2f} "
         f"({time.perf_counter() - t0:.1f} s with the build)")
@@ -1648,8 +1702,6 @@ def sphere_phases(dev):
 def one_rank_group(backend):
     """A process group of one rank (this process) over a ``file://`` store
     in a temporary directory, destroyed on exit."""
-    import tempfile
-
     import torch.distributed as dist
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1660,6 +1712,9 @@ def one_rank_group(backend):
             yield
         finally:
             dist.destroy_process_group()
+            # a group held in a reference cycle lives until the collector
+            # runs; torn down at interpreter exit it aborts the process
+            gc.collect()
 
 
 def gather_step_one(case, P):
@@ -1694,11 +1749,12 @@ def gather_step_one(case, P):
     return bcs(state2primitive(fl, Q0 + dt * (R0 + R1) / 2))
 
 
-def _sharded_rank(device, smi):
+def _sharded_rank(device, smi, wing_dir):
     """Phase 24 on one of four ranks (spawned; gloo with CUDA tensors, all
     on the one card): the sharded marches against the single-device ones
     on the card, the kernels' launches and the kernels against their plain
-    versions on this rank's local grid."""
+    versions on this rank's local grid; then the wing's four-rank part of
+    phase 27 against the one-rank run in ``wing_dir``."""
     import torch.distributed as dist
 
     from ibx_torch.cases import (build_rae2822, build_rae2822_block_sharded,
@@ -1824,18 +1880,316 @@ def _sharded_rank(device, smi):
          f"{(time.perf_counter() - t0) / 10 * 1e3:.3f} ms a call (host "
          f"clock, 10 calls; gloo, staged through host tensors "
          f"{sbd.mesh.staged}); card: {smi}")
+    del sph, sbd, step, P, loc
+    _wing_ranks(dev, rlog, rcheck, wing_dir)
 
 
-def sharded_ranks(smi):
-    """Phase 24: four gloo ranks on the one card (NCCL refuses two ranks
-    on one device), asked for explicitly."""
+def _wing_ranks(dev, rlog, rcheck, wing_dir):
+    """Phase 27 on one of the four ranks: the wing at the JAX test's size
+    on the rank's chunk, 10 steps and one FAS cycle against the one-rank
+    run of this card (the JAX test's bounds); no kernel launched."""
+    from ibx_torch.cases import build_wing3d_rans_fas
+    from ibx_torch.ops import kernels as K
+
+    wc = build_wing3d_rans_fas(SHARD_RANKS, device=dev, **WING_SMALL)
+    one = np.load(Path(wing_dir) / "wing1.npz")
+    K.reset_launches()
+    march = torch.as_tensor(wc.collect(wc.march(wc.S0_sh,
+                                                WING_RANKS_STEPS)))
+    cycle = torch.as_tensor(wc.collect(wc.fas_cycle(wc.S0_sh)[0]))
+    rcheck(f"wing, {WING_RANKS_STEPS} steps, four ranks vs one (per "
+           f"channel)", chan_err(torch.as_tensor(one["march"]), march),
+           WING_MARCH_TOL)
+    rcheck("wing, one FAS cycle, four ranks vs one (per channel)",
+           chan_err(torch.as_tensor(one["cycle"]), cycle), WING_CYCLE_TOL)
+    assert dict(K.launches) == dict.fromkeys(K.launches, 0), K.launches
+
+
+def wing_physical(Sn):
+    """tests/test_wing3d_fas.py:47-57: finite, p in (1e3, 1e6), T > 50 K,
+    Rt >= 0 on every cell of the flat fused state ``Sn``."""
+    assert np.isfinite(Sn).all(), "non-finite wing state"
+    assert Sn[:, 0].min() > 1e3 and Sn[:, 0].max() < 1e6
+    assert (Sn[:, 1] > 50.0).all() and (Sn[:, 5] >= 0.0).all()
+
+
+def sharded_ranks(smi, wing_dir):
+    """Phase 24 (and phase 27's four ranks): four gloo ranks on the one
+    card (NCCL refuses two ranks on one device), asked for explicitly."""
     from ibx_torch.parallel import spawn
 
     t0 = time.perf_counter()
     spawn(_sharded_rank, SHARD_RANKS, backend="gloo", device="cuda",
-          args=("cuda", smi), threads=2)
+          args=("cuda", smi, str(wing_dir)), threads=2)
     log(f"[ranks] phase 24 ({SHARD_RANKS} gloo ranks on one card) took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def wing_err(ref, out):
+    """(flow channels per channel over their scale, Rt over max |Rt|) of
+    two fused wing states [N, 6]."""
+    ref, out = torch.as_tensor(ref), torch.as_tensor(out)
+    return chan_err(ref[:, :5], out[:, :5]), rel_max(ref[:, 5], out[:, 5])
+
+
+def wing_channels(label, ref, out):
+    """Print the per-channel max |out - ref| of two fused wing states
+    [N, 6], each over that channel's max |ref| (the scale the checks
+    use), beside the scales and the largest |V| of ``ref``."""
+    ref, out = np.asarray(ref, np.float64), np.asarray(out, np.float64)
+    scale = np.abs(ref).max(0)
+    err = np.abs(out - ref).max(0)
+    v = float(np.sqrt((ref[:, 2:5] ** 2).sum(1)).max())
+    names = ("p", "T", "u", "v", "w", "Rt")
+    log(f"  [{label}] per channel, max abs error / max |ref|: "
+        + ", ".join(f"{n} {e:.3e}/{c:.4e} = {e / c:.3e}"
+                    for n, e, c in zip(names, err, scale))
+        + f"; max |V| {v:.4e}")
+
+
+def ulp_jitter(S, seed=0):
+    """``S`` with every nonzero entry moved one ulp up or down at random."""
+    rng = np.random.default_rng(seed)
+    sign = torch.as_tensor(rng.choice([-1.0, 1.0], S.numel())
+                           .astype(np.float32)).view_as(S).to(S.device)
+    return torch.where(S != 0, torch.nextafter(S, S + sign * torch.inf), S)
+
+
+def wing_small(smi, wing_dir):
+    """Phase 27 in this process: the wing at the JAX test's size on one
+    rank, card against CPU (2 steps and one FAS cycle, the RANS
+    tolerances); the one-rank run the four ranks of phase 24 are held
+    to (10 steps, one cycle) goes to ``wing_dir``; then the JAX test's
+    physical check on the card (twice 20 steps and a cycle)."""
+    from ibx_torch.cases import build_wing3d_rans_fas
+    from ibx_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    with one_rank_group("gloo"):
+        cpu = build_wing3d_rans_fas(1, device="cpu", **WING_SMALL)
+        gpu = build_wing3d_rans_fas(1, device="cuda", **WING_SMALL)
+        assert gpu.dom.ncells == WING_SMALL_CELLS, gpu.dom.ncells
+        log(f"[wing-small] build_wing3d_rans_fas(1, {WING_SMALL}): "
+            f"{gpu.dom.ncells} cells, card vs CPU")
+        K.reset_launches()
+        for label, run in (
+                (f"{WING_STEPS} steps", lambda c: c.march(c.S0_sh,
+                                                         WING_STEPS)),
+                ("one FAS cycle", lambda c: c.fas_cycle(c.S0_sh)[0])):
+            ref, out = cpu.collect(run(cpu)), gpu.collect(run(gpu))
+            wing_channels(f"{label}, card vs CPU", ref, out)
+            e_flow, e_rt = wing_err(ref, out)
+            check(f"{label}, flow (per channel)", e_flow, STEP_TOL)
+            check(f"{label}, Rt (of max |Rt|)", e_rt, RANS_RT_TOL)
+        # what sets the cycle's card-vs-CPU error (ref, out: the cycle's):
+        # the card against itself (the 2:1 faces' index_add_ is atomic
+        # there), and the CPU's own cycle from S0 moved by one ulp at
+        # random in every entry
+        cyc = gpu.collect(gpu.fas_cycle(gpu.S0_sh)[0])
+        wing_channels("one FAS cycle, card vs card", out, cyc)
+        wing_channels("one FAS cycle, CPU vs CPU from S0 +- 1 ulp", ref,
+                      cpu.collect(cpu.fas_cycle(ulp_jitter(cpu.S0_sh))[0]))
+        one = dict(march=gpu.collect(gpu.march(gpu.S0_sh,
+                                               WING_RANKS_STEPS)),
+                   cycle=gpu.collect(gpu.fas_cycle(gpu.S0_sh)[0]))
+        np.savez(Path(wing_dir) / "wing1.npz", **one)
+        S = gpu.S0_sh
+        for _ in range(2):
+            S = gpu.march(S, 20)
+            S, _ = gpu.fas_cycle(S)
+        Sn = gpu.collect(S)
+        log(f"[wing-small] after 2 x (20 steps + a cycle): finite "
+            f"{bool(np.isfinite(Sn).all())}, p {Sn[:, 0].min():.1f} to "
+            f"{Sn[:, 0].max():.1f}, T min {Sn[:, 1].min():.2f}, Rt min "
+            f"{Sn[:, 5].min():.3e}")
+        wing_physical(Sn)
+        assert dict(K.launches) == dict.fromkeys(K.launches, 0), K.launches
+    log(f"[wing-small] phase 27, one rank, took "
+        f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+
+
+def wing_forces(wc, S):
+    """(Cl, Cd, wall Cp) of the flat fused state ``S`` from the
+    wall-sampled pressure (chord 1, span from the case): the port's copy
+    of scripts/wing3d_converge.py:wing_forces."""
+    from ibx_torch.physics.fluid import pressure_coefficient
+
+    surf = wc.dom.surfaces["wall"]
+    p_wall = surf(torch.as_tensor(S)[:, 0])
+    P_inf = wc.P_inf
+    mach = float(np.hypot(P_inf[2], P_inf[3])
+                 / np.sqrt(1.4 * 283.0 * P_inf[1]))
+    cp = pressure_coefficient(wc.fluid, p_wall, float(P_inf[0]),
+                              mach).cpu().numpy()
+    f = -cp[:, None] * surf.normals * surf.areas[:, None]
+    F = f.sum(axis=0)
+    al = np.arctan2(float(P_inf[3]), float(P_inf[2]))
+    area = float(np.abs(surf.normals * surf.areas[:, None]).sum(0)[1]) / 2
+    drag = (F[0] * np.cos(al) + F[1] * np.sin(al)) / max(area, 1e-9)
+    lift = (-F[0] * np.sin(al) + F[1] * np.cos(al)) / max(area, 1e-9)
+    return float(lift), float(drag), cp
+
+
+def wing_full(root, smi):
+    """Phase 28: the wing at its defaults (466,432 cells) on one NCCL rank
+    (this process), from the converged state of the committed oracle: its
+    wall Cp and Cl, 100 steps inside the oracle's Cl tail band with the
+    residual near the oracle's, one FAS cycle finite and physical; ms a
+    step and a cycle, the card's busy time, build s, peak memory; no
+    kernel launched."""
+    from ibx_torch.cases import build_wing3d_rans_fas
+    from ibx_torch.ops import kernels as K
+
+    ref = np.load(root / WING_ORACLE)
+    hist = ref["hist"]
+    tail = hist[3 * len(hist) // 4:, 2]
+    band = 3 * tail.std() + 1e-4
+    l2_ref = float(hist[-1, 1])
+    zero = dict.fromkeys(K.launches, 0)
+    t_phase = time.perf_counter()
+    with one_rank_group("nccl"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wc = build_wing3d_rans_fas(1, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        assert wc.dom.ncells == WING_CELLS == ref["S"].shape[0]
+        S0 = torch.as_tensor(ref["S"], device="cuda")
+        cl0, cd0, cp0 = wing_forces(wc, S0)
+        log(f"[wing-full] build_wing3d_rans_fas(1) at its defaults: "
+            f"{wc.dom.ncells} cells, {wc.sbd.B} blocks of "
+            f"{wc.sbd.bs}^3, build {build_s:.1f} s; from {WING_ORACLE}: "
+            f"Cl {cl0:.6f} (oracle {float(ref['cl']):.6f}), Cd {cd0:.6f}")
+        check("wall Cp of the oracle's state vs its cp (absolute)",
+              float(np.abs(cp0 - ref["cp"]).max()), WING_CP_TOL)
+        check("Cl of the oracle's state vs its cl (absolute)",
+              abs(cl0 - float(ref["cl"])), WING_CL_TOL)
+        S = wc.sbd.distribute(S0)
+        del S0
+        t0 = time.perf_counter()
+        S = wc.march(S, 2)
+        torch.cuda.synchronize()
+        log(f"[wing-full] {time.perf_counter() - t_phase:.1f} s into the "
+            f"phase; 2 warm-up steps {time.perf_counter() - t0:.1f} s")
+        K.reset_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        S = wc.march(S, WING_FULL_STEPS)
+        e1.record()
+        e1.synchronize()
+        host_ms = (time.perf_counter() - t0) / WING_FULL_STEPS * 1e3
+        ms_step = e0.elapsed_time(e1) / WING_FULL_STEPS
+        Sn = wc.collect(S)
+        cl, cd, _ = wing_forces(wc, torch.as_tensor(Sn, device="cuda"))
+        l2, mx = (float(v) for v in wc.res_norms(S))
+        log(f"[wing-full] {WING_FULL_STEPS} steps: {ms_step:.3f} ms/step "
+            f"(CUDA events; host clock {host_ms:.3f}), "
+            f"{wc.dom.ncells * 1e3 / ms_step:.4e} cell-updates/s; Cl "
+            f"{cl:.6f} (oracle tail {tail.mean():.6f} +- {band:.6f}), Cd "
+            f"{cd:.6f}; res_norms L2 {l2:.4e} (oracle's last "
+            f"{l2_ref:.4e}), max {mx:.4e}")
+        assert np.isfinite(Sn).all(), "non-finite wing state"
+        assert abs(cl - tail.mean()) < band, (cl, tail.mean(), band)
+        assert 0.5 * l2_ref < l2 < 2.0 * l2_ref, (l2, l2_ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        S, res = wc.fas_cycle(S)
+        e1.record()
+        e1.synchronize()
+        host_cycle = (time.perf_counter() - t0) * 1e3
+        ms_cycle = e0.elapsed_time(e1)
+        Sn = wc.collect(S)
+        launches = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[wing-full] one FAS cycle (n_coarse_iter 8): {ms_cycle:.1f} "
+            f"ms (CUDA events; host clock {host_cycle:.1f}), residual "
+            f"{float(res):.4e}; finite {bool(np.isfinite(Sn).all())}, p "
+            f"{Sn[:, 0].min():.1f} to {Sn[:, 0].max():.1f}, T min "
+            f"{Sn[:, 1].min():.2f}, Rt min {Sn[:, 5].min():.3e}; peak "
+            f"memory {peak / 2**30:.3f} GiB over its build and march "
+            f"({base / 2**30:.3f} GiB held before them); launches "
+            f"{launches}")
+        wing_physical(Sn)
+        assert launches == zero, launches
+        acts, busy_ms, _ = profile_busy(lambda: wc.march(S, 1), 1,
+                                        "wing-full", ms_step)
+        del wc, S
+    out = dict(ms_step=ms_step, host_ms=host_ms, busy_ms=busy_ms,
+               activities=acts, ms_cycle=ms_cycle, build_s=build_s,
+               peak_gib=peak / 2**30, cl=cl)
+    log(f"[wing-full] phase 28 took {time.perf_counter() - t_phase:.1f} s; "
+        f"card: {smi}; " + json.dumps({k: round(v, 6) for k, v in
+                                       out.items()}))
+    return out
+
+
+def block_walls(root, dev, smi):
+    """Phase 29: the block march's mirrored and cut-cell walls: one step
+    card vs CPU of each at 16,768 cells, then the 881,152-cell flagship
+    with ``cutcell=True`` 50 steps from the freestream (finite, ms a step,
+    the card's busy time, build s); no kernel launched."""
+    from ibx_torch.cases import build_rae2822
+    from ibx_torch.ops import kernels as K
+
+    zero = dict.fromkeys(K.launches, 0)
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    for opt in ("mirror_wall", "cutcell"):
+        kw = dict(WALLS_SMALL, **{opt: True})
+        card = build_rae2822(device=dev, **kw)
+        cpu = build_rae2822(device="cpu", **kw)
+        log(f"[walls] build_rae2822({kw}) ({card.dom.ncells} cells), block "
+            f"march, one step card vs CPU")
+        P = perturbed2d(cpu, seed=9)
+        ref, res_ref = cpu.step(P)
+        out, res = card.step(P.to(dev))
+        check("state (per channel)", chan_err(ref, out.cpu()), STEP_TOL)
+        check("resnorm (relative)",
+              abs(float(res) - float(res_ref)) / float(res_ref), RES_TOL)
+    del card, cpu
+    assert dict(K.launches) == zero, K.launches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    case = build_rae2822(device=dev, cutcell=True, **RAE_FLAGSHIP)
+    assert case.dom.ncells == RAE_CELLS, case.dom.ncells
+    P = case.march(case.P0, 2)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    P = case.march(P, CUT_FULL_STEPS)
+    e1.record()
+    e1.synchronize()
+    host_ms = (time.perf_counter() - t0) / CUT_FULL_STEPS * 1e3
+    ms_step = e0.elapsed_time(e1) / CUT_FULL_STEPS
+    launches = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(P).all())
+    log(f"[walls] build_rae2822({RAE_FLAGSHIP}, cutcell=True): "
+        f"{case.dom.ncells} cells, {int(case.cut3['wall_cells'].shape[0])} "
+        f"wall cells, cut faces a dim "
+        f"{[int(o.shape[0]) for o in case.cut3['owner']]}, build "
+        f"{case.build_seconds:.1f} s; {CUT_FULL_STEPS} steps from the "
+        f"freestream: {ms_step:.3f} ms/step (CUDA events; host clock "
+        f"{host_ms:.3f}), finite {finite}, peak memory "
+        f"{(peak - base) / 2**30:.3f} GiB above what was held; launches "
+        f"{launches}")
+    assert finite, "non-finite cut-cell flagship state"
+    assert launches == zero, launches
+    _, busy_ms, _ = profile_busy(lambda: case.march(P, 5), 5, "walls",
+                                 ms_step)
+    log(f"[walls] phase 29 took {time.perf_counter() - t_phase:.1f} s; "
+        f"card: {smi}")
+    return dict(ms_step=ms_step, host_ms=host_ms, busy_ms=busy_ms,
+                build_s=case.build_seconds)
 
 
 def sharded_flagship(root, case, smi, blk):
@@ -1991,6 +2345,9 @@ def main() -> int:
     for r in rows:
         r["sharded_launches_per_step"] = shard[r["name"]]
     log(f"[shard26] phase 26 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gather3d_full(smi, blk3d, case3d)
+    log(f"[gather3d-full] phase 16 took {time.perf_counter() - t0:.1f} s")
     # the sphere's tensors are no longer needed: free them before the 2D
     # phases, so that their peak memory is their own
     del case3d
@@ -2000,7 +2357,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gather_phases(root, dev, smi, blk)
-    gather3d_full(smi, blk3d)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2013,7 +2369,16 @@ def main() -> int:
     log(f"[solve] phases 21-23 took {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    sharded_ranks(smi)
+    with tempfile.TemporaryDirectory() as wing_dir:
+        wing_small(smi, wing_dir)
+        sharded_ranks(smi, wing_dir)
+    t0 = time.perf_counter()
+    wing_full(root, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    block_walls(root, dev, smi)
+    log(f"[new] phases 27-29 (with phase 27's four ranks inside phase 24) "
+        f"after phase 24 took {time.perf_counter() - t0:.1f} s")
 
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -12,12 +12,14 @@ from .rae2822_rans import (Rae2822RansCase, build_rae2822_rans,
 from .rae2822_sharded import build_rae2822_sharded
 from .sphere3d import Sphere3dCase, build_sphere3d
 from .sphere3d_block_sharded import build_sphere3d_block_sharded
+from .wing3d_rans_fas import Wing3dCase, build_wing3d_rans_fas
 
 __all__ = [
     "FlatPlateCase",
     "Rae2822Case",
     "Rae2822RansCase",
     "Sphere3dCase",
+    "Wing3dCase",
     "build_flat_plate",
     "build_rae2822",
     "build_rae2822_block_sharded",
@@ -25,6 +27,7 @@ __all__ = [
     "build_rae2822_sharded",
     "build_sphere3d",
     "build_sphere3d_block_sharded",
+    "build_wing3d_rans_fas",
     "cf_prandtl",
     "cf_schultz_grunow",
     "force_coefficients",

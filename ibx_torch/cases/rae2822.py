@@ -26,9 +26,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..convert import tables_from_numpy
+from ..convert import cut3_from_numpy, tables_from_numpy
 from ..geometry import (DistanceField, build_mesh, feature_regions,
                         load_surface, merge_points)
+from ..geometry.cutcell import cut_metrics_2d, fluid_fractions_2d
 from ..geometry.inside import points_inside
 from ..geometry.octree import get_cells
 from ..ops.block_ops import (euler_step_grid, rk2_step_grid, to_blocks,
@@ -43,6 +44,8 @@ from ..topology.domain import Domain, require_device
 
 RAE_DAT = os.path.join(os.path.dirname(__file__), "data", "rae2822.dat")
 FAMILIES = ("farfield", "wall")
+# cut-cell floor: cells of smaller fluid fraction stay frozen
+_ALPHA_FLOOR = 0.05
 
 
 @dataclasses.dataclass
@@ -69,6 +72,11 @@ class Rae2822Case:
     active: Optional[torch.Tensor]   # f32[N] 0/1 freeze mask
     P0: torch.Tensor                 # f32[N, 4] flat initial state
     build_seconds: float             # host build + table upload
+    # block march: the mirrored families and their per-ghost gate (the
+    # GhostBC's row order), and the cut-cell wall tables
+    mirror: tuple = ()
+    mirror_scale: Optional[torch.Tensor] = None
+    cut3: Optional[dict] = None
 
     @property
     def blocks_on(self) -> bool:
@@ -76,7 +84,9 @@ class Rae2822Case:
 
     def apply_bcs3(self, P3):
         """Ghost BCs on the block-grid state, in place."""
-        return self.bc.apply_grid(P3, self.bc_fns, guard=physicality_guard)
+        return self.bc.apply_grid(P3, self.bc_fns, guard=physicality_guard,
+                                  mirror=self.mirror,
+                                  mirror_scale=self.mirror_scale)
 
     def apply_bcs(self, P):
         """Ghost BCs on the flat [N, 4] state (a new tensor)."""
@@ -90,12 +100,12 @@ class Rae2822Case:
             return euler_step_grid(
                 self.bt, self.fluid, P3, self.apply_bcs3, cfl=self.cfl,
                 high_order=self.high_order, active3=self.active3,
-                fix3=self.fix3)
+                fix3=self.fix3, cut3=self.cut3)
         return rk2_step_grid(
             self.bt, self.fluid, P3, self.apply_bcs3, cfl=self.cfl,
             high_order=self.high_order, active3=self.active3,
             fix3=self.fix3, freeze_gradients=self.freeze_gradients,
-            irs_eps=self.irs_eps)
+            irs_eps=self.irs_eps, cut3=self.cut3)
 
     def _gather_step(self, P):
         if self.dom.n_partitions != 1:
@@ -144,7 +154,7 @@ class Rae2822Case:
             return rk2_step_grid(
                 self.bt, self.fluid, P3, self.apply_bcs3, cfl=self.cfl,
                 high_order=self.high_order, active3=self.active3,
-                fix3=ones3)
+                fix3=ones3, cut3=self.cut3)
 
         return self._march(one, P, n_steps)
 
@@ -180,15 +190,24 @@ def build_rae2822(
     1`` builds the domain with its partitions and the family-by-family
     ghost BC (`Domain.impose_bc`) as the JAX package does, but its step
     raises: `build_rae2822_sharded` marches that domain, one rank a
-    partition. ``mirror_wall`` exists on the
-    gather march only (through `FusedBoundary`), and the flagged cut-cell
-    wall ``cutcell`` is not ported."""
+    partition. ``mirror_wall`` reflects the wall ghosts' normal velocity
+    on either march (gated off at the thin trailing edge). ``cutcell``
+    (the flagged cut-cell wall, block march only) forces
+    ``fluid_ghost_ratio=0``, ``reflect_solid_images`` and ``mirror_wall``
+    and solves every cell whose fluid fraction exceeds 0.05."""
     device = require_device("build_rae2822", device)
     blocks_on = use_blocks and n_partitions == 1
-    if cutcell or (mirror_wall and blocks_on):
-        raise NotImplementedError(
-            "build_rae2822: cutcell, and mirror_wall on the block march, "
-            "are not ported to ibx_torch yet (ROADMAP queue 1 item 4)")
+    # cut-cell wall (flagged deviation; `geometry.cutcell`): the wall
+    # enters through aperture-weighted fluxes and an explicit wall pressure
+    # flux on the true wall geometry. Every fluid cell is solved (no
+    # eta-overwritten fluid ghost rows); in-solid ghosts keep sane values
+    # through reflected images and the mirrored normal velocity.
+    if cutcell:
+        if not blocks_on:
+            raise ValueError("cutcell=True requires the block fast path")
+        fluid_ghost_ratio = 0.0
+        reflect_solid_images = True
+        mirror_wall = True
     t0 = time.perf_counter()
     stl = merge_points(load_surface(RAE_DAT))
     features = DistanceField(feature_regions(stl, radius=0.05))
@@ -202,6 +221,15 @@ def build_rae2822(
     _centers, _widths, _ = get_cells(msh)
     inside = points_inside(stl, _centers)
 
+    # cut-cell solved set: every cell with fluid fraction above the floor
+    # is marched, center-in-solid cut cells included (freezing them would
+    # rebuild the staircase wall one row lower)
+    cc_alpha = solve_in = None
+    if cutcell:
+        cc_alpha = fluid_fractions_2d(
+            stl, msh.distance_fields["wall"], _centers, _widths, inside)
+        solve_in = inside & (cc_alpha > _ALPHA_FLOOR)
+
     dom = Domain(
         msh,
         n_partitions=n_partitions,
@@ -211,13 +239,16 @@ def build_rae2822(
         fluid_ghost_ratio=fluid_ghost_ratio,
         reflect_solid_images=reflect_solid_images,
         ghost_layer_ratio=ghost_layer_ratio,
+        solve_inside_cells=solve_in,
         device=device,
     )
 
     # freeze cells strictly inside the airfoil (their free evolution, the
     # reference's behavior, diverges at fine resolution and pollutes
-    # image-point stencils through the interior ghost band)
-    solved_mask = ~inside
+    # image-point stencils through the interior ghost band); under the
+    # cut-cell flag, in-solid cells above the fluid-fraction floor are
+    # solved instead
+    solved_mask = ~inside if solve_in is None else (~inside | solve_in)
 
     fluid = make_fluid()
     T_inf = 288.15
@@ -247,6 +278,18 @@ def build_rae2822(
     if blocks_on:
         _block_tables(case, stl, wall_h, te_fix_radius, wall_fix_cells,
                       solved_mask, device)
+        if mirror_wall:
+            case.mirror = ("wall",)
+            npb = case.bt.block_size ** case.bt.nd
+            case.mirror_scale = _mirror_gate(
+                dom, stl, case.bc.ghost_b * npb + case.bc.ghost_w,
+                case.bc.normals, device)
+        if cutcell:
+            cm = cut_metrics_2d(
+                stl, msh.distance_fields["wall"], dom.centers, dom.widths,
+                solved_mask, dom.face_dim, dom.face_owner,
+                dom.face_neighbor, alpha=cc_alpha, alpha_floor=_ALPHA_FLOOR)
+            case.cut3 = cut3_from_numpy(cm, case.bt, device)
     else:
         case.active = torch.as_tensor(solved_mask.astype(np.float32),
                                       device=device)
@@ -286,19 +329,27 @@ def _flat_bcs(dom: Domain, stl, bc_fns: dict, mirror_wall: bool,
     # the startup transient).
     mirror, scale = (), None
     if mirror_wall:
-        ghost_ids = fb.ghost.cpu().numpy()
-        normals_g = fb.normals.cpu().numpy()
-        depth = 2.0 * dom.widths[ghost_ids].max(axis=1)
-        probe = dom.centers[ghost_ids] - normals_g * depth[:, None]
         mirror = ("wall",)
-        scale = torch.as_tensor(
-            points_inside(stl, probe).astype(np.float32), device=device)
+        scale = _mirror_gate(dom, stl, fb.ghost, fb.normals, device)
 
     def apply_bcs(P):
         return fb(P, bc_fns, guard=physicality_guard, mirror=mirror,
                   mirror_scale=scale)
 
     return apply_bcs
+
+
+def _mirror_gate(dom: Domain, stl, ghost_ids, normals_g, device):
+    """Per-ghost mirror gate (f32[G], the rows of ``ghost_ids``): 1 where
+    the solid is at least ~2 local cell widths deep along the inward
+    normal, 0 at the trailing-edge sliver, where reflecting both surfaces
+    into the wake destabilizes the startup transient."""
+    ghost_ids = torch.as_tensor(ghost_ids).cpu().numpy()
+    normals_g = torch.as_tensor(normals_g).cpu().numpy()
+    depth = 2.0 * dom.widths[ghost_ids].max(axis=1)
+    probe = dom.centers[ghost_ids] - normals_g * depth[:, None]
+    return torch.as_tensor(points_inside(stl, probe).astype(np.float32),
+                           device=device)
 
 
 def _block_tables(case: Rae2822Case, stl, wall_h: float,

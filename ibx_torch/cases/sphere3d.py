@@ -212,8 +212,6 @@ def build_sphere3d(
     }
 
     active = torch.as_tensor((~inside).astype(np.float32), device=device)
-    P0 = np.tile(P_inf, (dom.ncells, 1))
-    P0[inside, 2:] = 0.0
     case = Sphere3dCase(
         dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, cfl=cfl,
         high_order=high_order, bc_fns=bc_fns, bt=None, bc=None,
@@ -225,12 +223,50 @@ def build_sphere3d(
             FAMILIES, device)
         case.active3 = to_blocks(case.bt, active[:, None])[..., 0]
         case.active_cs = cs_split(case.bt, case.active3[..., None])
+        case.P0 = case.apply_bcs(_initial_state(P_inf, inside, device))
     else:
-        case.fb = dom.fused_boundary(list(FAMILIES))
-        case.active = active
-        dom.partitions              # built here, inside build_seconds
-    case.P0 = case.apply_bcs(torch.as_tensor(P0, device=device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        _use_gather(case, active, inside)
+    _sync(device)
     case.build_seconds = time.perf_counter() - t0
     return case
+
+
+def gather_case(case: Sphere3dCase) -> Sphere3dCase:
+    """``case`` on the generic gather march, sharing its `Domain`: what
+    `build_sphere3d(..., use_blocks=False)` builds on that Domain (the
+    fused ghost BC, the partition tables and the initial state), without
+    a second host build. ``build_seconds`` counts the gather tables only.
+    A case already on the gather march is returned as it is."""
+    if case.bt is None:
+        return case
+    t0 = time.perf_counter()
+    active = to_flat(case.bt, case.active3[..., None])[:, 0]
+    g = dataclasses.replace(case, bt=None, bc=None, active_cs=None,
+                            active3=None, P0=None)
+    _use_gather(g, active, (active == 0).cpu().numpy())
+    _sync(active.device)
+    g.build_seconds = time.perf_counter() - t0
+    return g
+
+
+def _use_gather(case, active, inside):
+    """Put ``case`` on the gather march: the fused ghost BC, the solved
+    mask ``active`` (f32[N]), the partition tables (built here) and the
+    initial state, with ``inside`` (bool[N]) the solid cells."""
+    case.fb = case.dom.fused_boundary(list(FAMILIES))
+    case.active = active
+    case.dom.partitions
+    case.P0 = case.apply_bcs(_initial_state(case.P_inf, inside,
+                                            active.device))
+
+
+def _initial_state(P_inf, inside, device):
+    """The freestream, at rest in the solid cells ``inside``."""
+    P0 = np.tile(P_inf, (inside.shape[0], 1))
+    P0[inside, 2:] = 0.0
+    return torch.as_tensor(P0, device=device)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

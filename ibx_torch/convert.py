@@ -19,7 +19,9 @@ port's objects on ``device``, index tables as int64.
 
 A case's flat state comes across with `state_from_numpy`: the JAX case's
 ``P0`` (and, for RANS, ``Rt0``) as numpy arrays -> float32 tensors on
-``device``.
+``device``. The cut-cell wall's tables come across with
+`cut3_from_numpy` (`geometry.cutcell.cut_metrics_2d` output -> the
+``cut3`` of `ops.block_ops.euler_rhs_grid`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .ops.block_ops import to_blocks
 from .ops.operators import Partition
 from .ops.stencil import Stencil, stencil_from_padded
 from .topology.blocked_bc import GhostBC
@@ -45,6 +48,32 @@ def tables_from_numpy(bt_fields: Dict[str, object], families: dict,
     bc = GhostBC.from_numpy(families, names, bt.block_size ** bt.nd, device,
                             dense_families=dense_families)
     return bt, bc
+
+
+def cut3_from_numpy(cm: dict, bt: BlockTables, device) -> dict:
+    """`cut_metrics_2d` output -> the ``cut3`` tables of `euler_rhs_grid`
+    on ``bt``'s block grid: index tables int64, weights float32, the
+    fluid fraction and its inverse as block grids."""
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    def grid(a):
+        return to_blocks(bt, f32(a)[:, None])
+
+    return dict(
+        owner=tuple(i64(o) for o in cm["owner"]),
+        neighbor=tuple(i64(n) for n in cm["neighbor"]),
+        wr=tuple(f32(w) for w in cm["wr"]),
+        wl=tuple(f32(w) for w in cm["wl"]),
+        wall_cells=i64(cm["wall_cells"]),
+        wall_coef=f32(cm["wall_coef"]),
+        xw_rel=f32(cm["xw_rel"]),
+        inv_alpha3=grid(cm["inv_alpha"]),
+        alpha3=grid(cm["alpha"])[..., 0],
+    )
 
 
 def state_from_numpy(*arrays, device) -> Tuple[torch.Tensor, ...]:

@@ -1,6 +1,7 @@
-"""Checkpoint and restore of solver state (`checkpoint`). The VTK writers
-of the JAX package's `ibx.io` are not ported yet (ROADMAP queue 1 item
-10)."""
+"""Checkpoint and restore of solver state (`checkpoint`) and the VTK XML
+writers (`vtk`)."""
 from .checkpoint import load_checkpoint, save_checkpoint
+from .vtk import export_mesh_vtk, export_vtk, write_vtp, write_vtr
 
-__all__ = ["load_checkpoint", "save_checkpoint"]
+__all__ = ["export_mesh_vtk", "export_vtk", "load_checkpoint",
+           "save_checkpoint", "write_vtp", "write_vtr"]

@@ -3,14 +3,16 @@
 and 3): layout reshapes, the structured 2:1 interface corrections, the
 generic sparse leftover, `face_accumulate` (its default concat
 formulation) and `cell_gradient_grid` on it, the block Euler RHS `euler_rhs_grid` with the ``fix3``
-robustness blend, the ``viscous`` fluxes with an ``mu_t3`` field and, at
-nd = 3, its kernel route, implicit residual smoothing, and the grid
-marches `rk2_step_grid` / `euler_step_grid` with their flat wrappers. At
-nd = 2 every call takes the torch-op body: neither package has a kernel
-for it. The minmod limiter is `ibx_torch.ops.operators.minmod`.
+robustness blend, the ``cut3`` cut-cell wall, the ``viscous`` fluxes
+with an ``mu_t3`` field and, at nd = 3, its kernel route, implicit
+residual smoothing, and the grid marches `rk2_step_grid` /
+`euler_step_grid` with their flat wrappers. At nd = 2 every call takes
+the torch-op body: neither package has a kernel for it. The minmod
+limiter is `ibx_torch.ops.operators.minmod`.
 
-Not ported yet (ROADMAP queue 1 item 4): the ``IBX_PADDED_FACES``
-formulation and the ``cut3`` option."""
+Not ported (ROADMAP queue 1 item 4, pending an H100 measurement): the
+``IBX_PADDED_FACES`` formulation of `face_accumulate`, a second
+formulation of the same numbers chosen on the TPU for its layout."""
 
 from __future__ import annotations
 
@@ -24,8 +26,6 @@ from ..physics.fluid import (Fluid, primitive2state, speed_of_sound,
 from ..physics.flux import inviscid_fluxes_hll, viscous_fluxes
 from ..topology.blocks import BlockTables
 from .operators import abs_select, minmod
-
-_NOT_PORTED = ("not ported to ibx_torch yet (ROADMAP queue 1 item 4)")
 
 
 def to_blocks(bt: BlockTables, u_flat):
@@ -420,13 +420,19 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     gradients with the orthogonality-corrected normal component, the dense
     counterpart of `ibx_torch.solve.euler.euler_rhs(viscous=True)`;
     ``mu_t3`` ([B, bs.., 1]) is an optional eddy-viscosity field. Both take
-    the torch-op body. ``cut3`` raises NotImplementedError.
+    the torch-op body.
+
+    ``cut3`` (the flagged cut-cell wall, `geometry.cutcell.cut_metrics_2d`
+    as tensors: per-dim ``owner`` / ``neighbor`` / ``wr`` / ``wl`` cut-face
+    tables, ``wall_cells``, ``wall_coef``, ``xw_rel``, ``inv_alpha3`` [B,
+    bs.., 1] and ``alpha3`` [B, bs..]) removes the solid-covered fraction
+    of each cut face's flux, adds the wall-pressure force on the true wall
+    vector, divides by the fluid fraction and scales dt by it (the
+    cut-cell CFL); it takes the torch-op body.
     """
-    if cut3 is not None:
-        raise NotImplementedError("euler_rhs_grid: cut3 is " + _NOT_PORTED)
     from .rhs_cs import euler_rhs_grid_pallas, pallas_eligible
     if kernels and pallas_eligible(bt, viscous=viscous, frozen=frozen,
-                                   fix3=fix3, mu_t3=mu_t3):
+                                   fix3=fix3, mu_t3=mu_t3, cut3=cut3):
         return euler_rhs_grid_pallas(bt, fluid, P3, high_order=high_order,
                                      with_dt=with_dt, cfl=cfl, fold=fold)
     nd = bt.nd
@@ -458,19 +464,55 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     has_fix = fix3 is not None
     has_mut = viscous and mu_t3 is not None
     R3 = torch.zeros_like(P3)
+    signedB = [1.0] * ncomp
     for d in range(nd):
         Vparts = (P3, du_grids[d], nu3) + ((fix3,) if has_fix else ())
         if viscous:
             Vparts += tuple(du_grids[i] for i in range(nd) if i != d)
             if has_mut:
                 Vparts += (mu_t3,)
-        R3 = R3 + face_accumulate(
-            bt, d, Vparts,
-            face_b(fluid, high_order, d, has_fix, viscous, has_mut),
-            ncomp, [1.0] * ncomp)
+        fB = face_b(fluid, high_order, d, has_fix, viscous, has_mut)
+        R3 = R3 + face_accumulate(bt, d, Vparts, fB, ncomp, signedB)
+        if cut3 is not None and cut3["owner"][d].shape[0]:
+            # remove the solid-covered fraction (1 - aperture) of the cut
+            # faces' dense fluxes: the face function returns -F, so the
+            # signed sparse accumulation (+w on the owner, -w on the
+            # neighbour) cancels that fraction of the accumulated -gg(F);
+            # one-sided cut faces on the box carry the weight on one side
+            rem = _sparse_accum(bt, d, Vparts, fB, ncomp, signedB,
+                                cut3["owner"][d], cut3["neighbor"][d],
+                                cut3["wr"][d], cut3["wl"][d])
+            R3 = R3 - rem.reshape(grid_shape + (ncomp,))
+    if cut3 is not None:
+        R3 = _cut_wall(bt, P3, du_grids, R3, cut3)
     if with_dt:
-        return R3, cfl / dt_bound, (du_grids, nu3)
+        dt3 = cfl / dt_bound
+        if cut3 is not None:
+            dt3 = dt3 * cut3["alpha3"]     # cut-cell CFL: V -> alpha V
+        return R3, dt3, (du_grids, nu3)
     return R3
+
+
+def _cut_wall(bt: BlockTables, P3, du_grids, R3, cut3):
+    """The cut cells' wall-pressure momentum flux on the true wall vector
+    (p_w from the cell pressure plus the pass-A gradient to the wall
+    point), then R / alpha."""
+    wc = cut3["wall_cells"]
+    nd, ncomp = bt.nd, P3.shape[-1]
+    if wc.shape[0]:
+        # column gathers: the cells' pressure and its gradients
+        p_w = P3[..., 0].reshape(bt.n_cells).index_select(0, wc)
+        for d in range(nd):
+            dp = du_grids[d][..., 0].reshape(bt.n_cells).index_select(0, wc)
+            p_w = p_w + dp * cut3["xw_rel"][:, d]
+        Rmom = -p_w[:, None] * cut3["wall_coef"]        # [M, nd]
+        zeros = Rmom.new_zeros
+        Rrow = torch.cat([zeros((wc.shape[0], 2)), Rmom,
+                          zeros((wc.shape[0], ncomp - 2 - nd))], dim=1)
+        # the wall cells are unique: the add is exact
+        R3 = (R3.reshape(bt.n_cells, ncomp).index_add(0, wc, Rrow)
+              .reshape(R3.shape))
+    return R3 * cut3["inv_alpha3"]
 
 
 def euler_rhs_block(bt: BlockTables, fluid: Fluid, P, *,

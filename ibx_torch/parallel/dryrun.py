@@ -1,5 +1,5 @@
 """Multi-rank dry run on the CPU: the counterpart of the JAX package's
-``dryrun_multichip`` (`__graft_entry__.py`), legs 1, 2, 3 and 3b.
+``dryrun_multichip`` (`__graft_entry__.py`), legs 1, 2, 3, 3b and 4.
 
 `dryrun_multichip(n)` spawns ``n`` gloo ranks on the CPU (`spawn`); each
 leg takes one step at the JAX package's tiny sizes and asserts a finite
@@ -10,8 +10,8 @@ state on every rank:
      (what the JAX package's leg takes off the TPU);
   3b. the same case on the channel-split march (the kernels' plain
      versions on the CPU).
-Leg 4, the 3D RANS wing with FAS, waits for the wing case (ROADMAP queue 1
-item 9).
+  4. the 3D RANS wing with FAS (wall_h=0.25, span=0.5, farfield=2.0,
+     bs=8, 2 coarse iterations): 2 sharded RK2 steps, then one V-cycle.
 
     python3 -m ibx_torch.parallel.dryrun 4
 """
@@ -27,7 +27,7 @@ from .launch import spawn
 
 def _legs(n_devices: int) -> None:
     from ..cases import (build_rae2822_block_sharded, build_rae2822_sharded,
-                         build_sphere3d_block_sharded)
+                         build_sphere3d_block_sharded, build_wing3d_rans_fas)
 
     sbd, bstep, P0b, _ = build_rae2822_block_sharded(
         n_devices, wall_h=8e-2, feature_h=4e-2, device="cpu")
@@ -53,9 +53,16 @@ def _legs(n_devices: int) -> None:
     assert np.isfinite(sbd3c.collect(P1d)).all(), \
         "3D cs sharded step non-finite"
 
+    wc = build_wing3d_rans_fas(
+        n_devices, wall_h=0.25, span=0.5, farfield=2.0, block_size=8,
+        n_coarse_iter=2, device="cpu")
+    S1, _ = wc.fas_cycle(wc.march(wc.S0_sh, 2))
+    assert np.isfinite(wc.collect(S1)).all(), \
+        "wing3d RANS+FAS cycle non-finite"
+
 
 def dryrun_multichip(n_devices: int) -> None:
-    """Legs 1, 2, 3 and 3b on ``n_devices`` gloo ranks on the CPU; raises
+    """Legs 1, 2, 3, 3b and 4 on ``n_devices`` gloo ranks on the CPU; raises
     if any rank fails."""
     spawn(_legs, n_devices, backend="gloo", device="cpu",
           args=(n_devices,))

@@ -13,6 +13,7 @@ from the group. The same code runs under ``torchrun`` with its own
 
 from __future__ import annotations
 
+import gc
 import os
 import tempfile
 from typing import Callable, Optional, Sequence
@@ -35,6 +36,13 @@ def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
         dist.barrier()
     finally:
         dist.destroy_process_group()
+        # The group's C++ object (its gloo connections and threads) lives
+        # while any Python object holds it, and a mesh held in a reference
+        # cycle (a case's closures over its `ShardedBlockDomain`) keeps it
+        # until the cyclic collector runs, at the latest during interpreter
+        # shutdown, where tearing it down aborts the rank ("terminate
+        # called without an active exception"). Free it here.
+        gc.collect()
 
 
 def spawn(fn: Callable, world_size: int, *, backend: Optional[str] = None,

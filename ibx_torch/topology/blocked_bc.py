@@ -27,7 +27,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .domain import blend_families
+from .domain import blend_families, mirror_families
 
 
 def _collect_families(dom, names: Sequence[str]) -> dict:
@@ -125,15 +125,19 @@ class GhostBC:
         )
 
     def _ghost_values(self, read, fns: Dict[str, Callable],
-                      guard: Optional[Callable]):
-        """Blended, guarded ghost rows [G, C]; ``read(b, w)`` gathers the
-        cells (b, w) as rows [G, C]."""
+                      guard: Optional[Callable], mirror: Sequence[str] = (),
+                      mirror_scale=None):
+        """Blended, mirrored, guarded ghost rows [G, C]; ``read(b, w)``
+        gathers the cells (b, w) as rows [G, C]."""
         Pi = None
         for k in range(self.w.shape[1]):
             t = read(self.src_b[:, k], self.src_w[:, k]) * self.w[:, k:k + 1]
             Pi = t if Pi is None else Pi + t
         g = blend_families(Pi, self.normals, self.eta, self.family,
                            self.names, fns)
+        if mirror:
+            g = mirror_families(g, Pi, self.normals, self.eta, self.family,
+                                self.names, mirror, mirror_scale)
         return g if guard is None else guard(g)
 
     def apply_cs(self, Pc, fns: Dict[str, Callable], *,
@@ -149,13 +153,17 @@ class GhostBC:
         return Pc
 
     def apply_grid(self, P3, fns: Dict[str, Callable], *,
-                   guard: Optional[Callable] = None):
+                   guard: Optional[Callable] = None,
+                   mirror: Sequence[str] = (), mirror_scale=None):
         """`apply_cs` on the cell-major state ``P3`` ``[B, bs, ..., bs, C]``
         (contiguous; 2D or 3D), through its ``[B, bs^nd, C]`` view, IN
-        PLACE."""
+        PLACE. ``mirror`` (family names) flips those families' ghost
+        normal velocity to -eta*u_n(image), gated row by row by
+        ``mirror_scale`` (f32[G], this table's row order), as
+        `FusedBoundary` does."""
         view = P3.view(P3.shape[0], -1, P3.shape[-1])
         view[self.ghost_b, self.ghost_w] = self._ghost_values(
-            lambda b, w: view[b, w], fns, guard)
+            lambda b, w: view[b, w], fns, guard, mirror, mirror_scale)
         return P3
 
 

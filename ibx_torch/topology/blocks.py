@@ -37,9 +37,10 @@ class BlockTables:
       cs_fine (coarse side: coarse block, its 2^(nd-1) fine neighbors).
     Generic sparse leftover per dim d: sp_owner / sp_neighbor int64[F_d]
       flat cell ids, sp_wr / sp_wl f32[F_d] the face's weight on its owner
-      and on its neighbor; spacing_flat f32[N, nd] per-cell widths, held
-      only when some dim has leftover faces (else None); n_sparse their
-      count over all dims.
+      and on its neighbor; spacing_flat f32[N, nd] per-cell widths (the
+      sparse accumulations divide by them: the leftover faces and the
+      cut-cell wall's cut faces); n_sparse the leftover faces' count over
+      all dims.
     Kernel tables (nd = 3 only, None at nd = 2, which no kernel takes):
       meta f32[B, 16] = h_d (3), edge_valid[d][s] (6), bnd[d][s] (6), pad;
       nbr_table int32[B, 8] = nbr[d][s] (x0 x1 y0 y1 z0 z1), pad;
@@ -62,7 +63,7 @@ class BlockTables:
     sp_neighbor: Tuple
     sp_wr: Tuple
     sp_wl: Tuple
-    spacing_flat: Optional[torch.Tensor]
+    spacing_flat: torch.Tensor
     meta: Optional[torch.Tensor]
     nbr_table: Optional[torch.Tensor]
     fold_rows: Optional[torch.Tensor]
@@ -130,7 +131,7 @@ class BlockTables:
             sp_neighbor=per_dim("sp_neighbor", idx),
             sp_wr=per_dim("sp_wr", f32),
             sp_wl=per_dim("sp_wl", f32),
-            spacing_flat=f32(f["spacing_flat"]) if n_sparse else None,
+            spacing_flat=f32(f["spacing_flat"]),
             meta=meta, nbr_table=nbr_table, fold_rows=fold_rows,
             n_blocks=B, block_size=bs, nd=nd, n_cells=int(f["n_cells"]),
             n_sparse=n_sparse,

@@ -154,6 +154,26 @@ def _mirror_velocity(g, normals, corr):
     ], dim=1)
 
 
+def mirror_families(g, Pi, normals, eta, family, names: Sequence[str],
+                    mirror: Sequence[str], mirror_scale=None):
+    """Blended ghost rows ``g`` with the normal velocity of the ``mirror``
+    families' rows reflected: -eta*u_n(image) where the blend gives
+    +eta*u_n(image) (a flagged deviation from the reference blend, whose
+    wall is porous under near-wall vortical flow). ``mirror_scale``
+    (f32[G]) gates the reflection row by row."""
+    nd = normals.shape[1]
+    mm = None
+    for i, name in enumerate(names):
+        if name in mirror:
+            s = family == i
+            mm = s if mm is None else (mm | s)
+    un_i = (Pi[:, 2:2 + nd] * normals).sum(dim=1)
+    corr = torch.where(mm, 2.0 * eta[:, 0] * un_i, torch.zeros_like(un_i))
+    if mirror_scale is not None:
+        corr = corr * mirror_scale
+    return _mirror_velocity(g, normals, corr)
+
+
 @dataclasses.dataclass
 class FusedBoundary:
     """Several boundary families as one gather and one write-back.
@@ -188,18 +208,8 @@ class FusedBoundary:
         g = blend_families(Pi, self.normals, self.eta, self.family,
                            self.names, fns)
         if mirror:
-            nd = self.normals.shape[1]
-            mm = None
-            for i, name in enumerate(self.names):
-                if name in mirror:
-                    s = self.family == i
-                    mm = s if mm is None else (mm | s)
-            un_i = (Pi[:, 2:2 + nd] * self.normals).sum(dim=1)
-            corr = torch.where(mm, 2.0 * self.eta[:, 0] * un_i,
-                               torch.zeros_like(un_i))
-            if mirror_scale is not None:
-                corr = corr * mirror_scale
-            g = _mirror_velocity(g, self.normals, corr)
+            g = mirror_families(g, Pi, self.normals, self.eta, self.family,
+                                self.names, mirror, mirror_scale)
         if guard is not None:
             g = guard(g)
         return P.index_copy(0, self.ghost, g)

@@ -1,6 +1,6 @@
-"""March observability: the residual monitor and the profiler context
-(`monitor`). The JAX package's `pytree_dataclass` is not ported yet
-(ROADMAP queue 1 item 10)."""
+"""March observability (the residual monitor and the profiler context,
+`monitor`) and the pytree-dataclass decorator (`pytree`)."""
 from .monitor import ResidualMonitor, profile_trace
+from .pytree import pytree_dataclass
 
-__all__ = ["ResidualMonitor", "profile_trace"]
+__all__ = ["pytree_dataclass", "ResidualMonitor", "profile_trace"]

@@ -21,6 +21,7 @@ from ibx.physics import make_fluid as jx_make_fluid
 from ibx.physics.fluid import physicality_guard as jx_guard
 
 from ibx_torch.cases import build_sphere3d
+from ibx_torch.convert import cut3_from_numpy
 from ibx_torch.ops import block_ops as bo
 from ibx_torch.ops import kernels as K
 from ibx_torch.physics.fluid import make_fluid
@@ -141,14 +142,42 @@ def test_march5_grid_matches_case_march(cases):
     assert chan_err(ref, out) < 1e-3, chan_err(ref, out)
 
 
+def _cut_metrics(dom, seed=0, n_faces=40, n_wall=30):
+    """A synthetic `cut_metrics_2d`-shaped table on ``dom``'s cells (nd
+    dims): real interior faces of each dim with random closed fractions,
+    random wall cells with wall vectors and offsets, fluid fractions in
+    [0.3, 1]."""
+    rng = np.random.default_rng(seed)
+    nd, n = dom.centers.shape[1], dom.ncells
+    cm = dict(owner=[], neighbor=[], wr=[], wl=[])
+    for d in range(nd):
+        faces = np.nonzero((dom.face_dim == d) & (dom.face_owner >= 0)
+                           & (dom.face_neighbor >= 0))[0]
+        pick = np.sort(rng.choice(faces, n_faces, replace=False))
+        w = rng.uniform(0.0, 1.0, n_faces).astype(np.float32)
+        cm["owner"].append(dom.face_owner[pick].astype(np.int32))
+        cm["neighbor"].append(dom.face_neighbor[pick].astype(np.int32))
+        cm["wr"].append(w)
+        cm["wl"].append(w)
+    cm["wall_cells"] = np.sort(rng.choice(n, n_wall, replace=False))
+    cm["wall_coef"] = (rng.normal(size=(n_wall, nd)) * 1e-2).astype(
+        np.float32)
+    cm["xw_rel"] = (rng.normal(size=(n_wall, nd)) * 5e-2).astype(np.float32)
+    cm["alpha"] = rng.uniform(0.3, 1.0, n).astype(np.float32)
+    cm["inv_alpha"] = (1.0 / cm["alpha"]).astype(np.float32)
+    return cm
+
+
 @pytest.mark.parametrize("option", ["viscous", "mu_t3", "cut3",
                                     "cs_freeze"])
-def test_unported_options_raise(setup, cases, option):
-    """Options of the JAX grid path that the port does not have yet raise
-    instead of being ignored (``cut3``; ``freeze_gradients`` on the
-    channel-split march). ``viscous`` and ``mu_t3`` are ported: they take
-    the torch-op body (no kernel launch) and match the JAX grid path at
-    2e-4 per channel."""
+def test_unported_options_raise(setup, cases, sphere, option):  # noqa: F811
+    """The grid path's options that the port once refused. Only
+    ``cs_freeze`` still raises (``freeze_gradients`` on the channel-split
+    march, instead of being ignored). ``viscous``, ``mu_t3`` and ``cut3``
+    (the cut-cell wall's tables, here a synthetic set at nd = 3) are
+    ported: they take the torch-op body (no kernel launch) and match the
+    JAX grid path at 2e-4 per channel (dt under ``cut3`` at rtol 1e-5).
+    The name dates from when all four raised."""
     bt, tb, P3n = setup
     fl, P3 = make_fluid(), t(P3n)
     one = torch.ones(P3.shape[:-1] + (1,))
@@ -157,8 +186,29 @@ def test_unported_options_raise(setup, cases, option):
         with pytest.raises(ValueError, match="grid"):
             pt.step(pt.P0, freeze_gradients=True)
     elif option == "cut3":
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            bo.euler_rhs_grid(tb, fl, P3, cut3={"owner": ()})
+        cm = _cut_metrics(sphere[0])
+        jcut = dict(
+            owner=tuple(jnp.asarray(o) for o in cm["owner"]),
+            neighbor=tuple(jnp.asarray(o) for o in cm["neighbor"]),
+            wr=tuple(jnp.asarray(w) for w in cm["wr"]),
+            wl=tuple(jnp.asarray(w) for w in cm["wl"]),
+            wall_cells=jnp.asarray(cm["wall_cells"]),
+            wall_coef=jnp.asarray(cm["wall_coef"]),
+            xw_rel=jnp.asarray(cm["xw_rel"]),
+            inv_alpha3=jbo.to_blocks(bt, jnp.asarray(cm["inv_alpha"])[:, None]),
+            alpha3=jbo.to_blocks(bt, jnp.asarray(cm["alpha"])[:, None])[..., 0])
+        R, dt, _ = jbo.euler_rhs_grid(bt, jx_make_fluid(), jnp.asarray(P3n),
+                                      with_dt=True, cfl=0.7, cut3=jcut)
+        K.reset_launches()
+        out, dto, _ = bo.euler_rhs_grid(tb, fl, P3, with_dt=True, cfl=0.7,
+                                        cut3=cut3_from_numpy(cm, tb, "cpu"))
+        assert not any(K.launches.values())
+        assert chan_err(np.asarray(R), out.numpy(), axis=-1,
+                        floor=1e-3) < 2e-4
+        dt = np.asarray(dt)
+        assert np.abs(dto.numpy() - dt).max() <= 1e-5 * np.abs(dt).max()
+        plain = bo.euler_rhs_grid(tb, fl, P3, kernels=False).numpy()
+        assert np.abs(out.numpy() - plain).max() > 0
     else:
         kj = dict(viscous=True)
         kt = dict(viscous=True)

@@ -76,6 +76,10 @@ def test_scan_covers_the_2d_modules():
     want |= {f"ibx_torch/cases/{m}.py" for m in (
         "rae2822_sharded", "rae2822_block_sharded",
         "sphere3d_block_sharded")}
+    # the wing, the cut-cell wall, VTK export and the pytree containers
+    want |= {"ibx_torch/cases/wing3d_rans_fas.py",
+             "ibx_torch/geometry/cutcell.py", "ibx_torch/io/vtk.py",
+             "ibx_torch/utils/pytree.py"}
     assert want <= names, want - names
     for f in _port_files():
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -91,13 +95,7 @@ def test_scan_covers_the_2d_modules():
 
 # names of `ibx.<pkg>.__all__` the port does not have yet, each with the
 # ROADMAP item that ports it
-NOT_PORTED = {
-    "io": dict.fromkeys(
-        ["write_vtp", "write_vtr", "export_vtk", "export_mesh_vtk"],
-        "ROADMAP queue 1 item 10 (io/vtk.py)"),
-    "utils": dict.fromkeys(
-        ["pytree_dataclass"], "ROADMAP queue 1 item 10 (utils/pytree.py)"),
-}
+NOT_PORTED = {}
 
 
 @pytest.mark.parametrize("pkg", ["physics", "topology", "solve", "cases",
@@ -138,15 +136,17 @@ def test_build_without_device_needs_cuda(monkeypatch):
 
 
 def test_sharded_builders_without_device_need_cuda(monkeypatch):
-    """The three sharded builders run on the card unless asked otherwise:
-    without one they raise before they look for a process group."""
+    """The sharded builders (the wing's too) run on the card unless asked
+    otherwise: without one they raise before they look for a process
+    group."""
     from ibx_torch.cases import (build_rae2822_block_sharded,
                                  build_rae2822_sharded,
-                                 build_sphere3d_block_sharded)
+                                 build_sphere3d_block_sharded,
+                                 build_wing3d_rans_fas)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for build in (build_rae2822_sharded, build_rae2822_block_sharded,
-                  build_sphere3d_block_sharded):
+                  build_sphere3d_block_sharded, build_wing3d_rans_fas):
         with pytest.raises(RuntimeError, match="CUDA"):
             build(4)
 

@@ -158,16 +158,17 @@ def test_apply_bcs_is_functional(cases):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(cutcell=True), NotImplementedError),
-    (dict(mirror_wall=True), NotImplementedError),
-    (dict(cutcell=True, use_blocks=False), NotImplementedError),
-], ids=["cutcell", "mirror_wall", "cutcell_gather"])
+    (dict(cutcell=True, use_blocks=False), ValueError),
+    (dict(cutcell=True, n_partitions=2), ValueError),
+], ids=["cutcell_gather", "cutcell_partitions"])
 def test_unported_options_raise(kw, exc):
-    """Options of the JAX `build_rae2822` that the port lacks raise
-    instead of being ignored (``mirror_wall`` on the block branch; the
-    gather branch has it)."""
-    with pytest.raises(exc):
+    """Every option of the JAX `build_rae2822` is ported; the combinations
+    the JAX package refuses raise here too (``cutcell`` off the block
+    march)."""
+    with pytest.raises(exc, match="block fast path"):
         build_rae2822(device="cpu", **SMALL, **kw)
+    with pytest.raises(exc, match="block fast path"):
+        jx_build_rae2822(**SMALL, **kw)
 
 
 @pytest.fixture(scope="module")

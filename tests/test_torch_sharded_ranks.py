@@ -9,6 +9,7 @@ exits. The JAX side of each comparison stays in the test files
 `test_torch_sphere3d_sharded.py`); each rank writes what it collected to
 ``out_dir`` (rank 0 the ``.npz``, every rank its own checks)."""
 
+import glob
 import json
 
 import numpy as np
@@ -25,6 +26,7 @@ from ibx_torch.ops import kernels as K
 from ibx_torch.ops import operators as to
 from ibx_torch.parallel import (ShardedDomain, make_device_mesh,
                                 sharded_impose_bc, spawn)
+from ibx_torch.parallel.launch import _rank_main
 from ibx_torch.topology.domain import Domain
 
 P_RANKS = 4
@@ -257,3 +259,39 @@ def test_spawn_raises_when_a_rank_raises():
     with pytest.raises(mp.ProcessRaisedException,
                        match="rank 1 fails|Connection reset|Connection closed"):
         spawn(_raise_on_rank_1, 2, backend="gloo", device="cpu", threads=1)
+
+
+def _hold_mesh_in_cycle():
+    """A rank function whose mesh (and with it the process group) stays
+    referenced from a reference cycle when it returns, as a case's
+    closures over its `ShardedBlockDomain` do."""
+    class Holder:
+        pass
+
+    h = Holder()
+    h.mesh = make_device_mesh(1, device="cpu")
+    h.self = h
+
+
+def _gloo_threads():
+    names = []
+    for task in glob.glob("/proc/self/task/*/comm"):
+        try:
+            with open(task) as f:
+                names.append(f.read().strip())
+        except OSError:
+            pass
+    return [n for n in names if "gloo" in n]
+
+
+def test_rank_teardown_frees_group_held_by_cycle(tmp_path):
+    """A rank's process group is torn down inside the rank's own code,
+    not at interpreter shutdown: after `_rank_main` returns, no gloo
+    thread is left, even when the rank function left its mesh in a
+    reference cycle. (A group left to the shutdown aborted 6 of 30 four-
+    rank runs with "terminate called without an active exception".)"""
+    assert not dist.is_initialized()
+    _rank_main(0, _hold_mesh_in_cycle, 1, "gloo",
+               "file://" + str(tmp_path / "store"), 1, ())
+    assert not dist.is_initialized()
+    assert _gloo_threads() == []

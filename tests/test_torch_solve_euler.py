@@ -25,6 +25,7 @@ from ibx.solve import euler as je
 
 from ibx_torch import geometry as tg
 from ibx_torch.cases import build_rae2822
+from ibx_torch.convert import cut3_from_numpy
 from ibx_torch.ops import block_ops as bo
 from ibx_torch.ops import kernels as K
 from ibx_torch.ops import operators as ops
@@ -215,10 +216,29 @@ def test_viscous_block_parity(setup, mu):
 
 
 def test_block_cut3_still_raises(setup):
+    """The block RHS's ``cut3`` (the cut-cell wall) with an all-open
+    geometry (no cut face, no wall cell, alpha = 1) leaves R and dt
+    bit-equal to the plain block RHS; an incomplete table raises. The
+    option is ported: only the incomplete table still raises (the name
+    dates from when the whole option was refused)."""
     _, _, blk, _ = setup
-    with pytest.raises(NotImplementedError, match="cut3"):
-        bo.euler_rhs_grid(blk.bt, blk.fluid, bo.to_blocks(blk.bt, blk.P0),
-                          cut3={})
+    P3 = bo.to_blocks(blk.bt, torch.as_tensor(perturbed(blk, seed=4)))
+    empty = np.zeros(0, np.int32)
+    cm = dict(owner=[empty] * 2, neighbor=[empty] * 2,
+              wr=[np.zeros(0, np.float32)] * 2,
+              wl=[np.zeros(0, np.float32)] * 2, wall_cells=empty,
+              wall_coef=np.zeros((0, 2), np.float32),
+              xw_rel=np.zeros((0, 2), np.float32),
+              alpha=np.ones(blk.dom.ncells, np.float32),
+              inv_alpha=np.ones(blk.dom.ncells, np.float32))
+    R, dt, _ = bo.euler_rhs_grid(blk.bt, blk.fluid, P3, with_dt=True,
+                                 cfl=0.7)
+    Rc, dtc, _ = bo.euler_rhs_grid(blk.bt, blk.fluid, P3, with_dt=True,
+                                   cfl=0.7,
+                                   cut3=cut3_from_numpy(cm, blk.bt, "cpu"))
+    assert torch.equal(R, Rc) and torch.equal(dt, dtc)
+    with pytest.raises(KeyError):
+        bo.euler_rhs_grid(blk.bt, blk.fluid, P3, cut3={})
 
 
 # -- the reference's README recipes on the port's operator API ---------------

@@ -17,6 +17,7 @@ from ibx.physics.fluid import physicality_guard as jx_guard
 from ibx.topology.blocked_bc import _collect_families
 
 from ibx_torch.cases import build_sphere3d
+from ibx_torch.cases.sphere3d import gather_case
 from ibx_torch.convert import tables_from_numpy
 from ibx_torch.physics.fluid import physicality_guard
 
@@ -99,7 +100,15 @@ def test_march5_matches_case_march(cases):
     assert chan_err(ref, out) < 1e-3, chan_err(ref, out)
 
 
-def test_gather_case_matches(cases):
+@pytest.fixture(scope="module")
+def gather():
+    jx = jx_build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False)
+    pt = build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False,
+                        device="cpu")
+    return jx, pt
+
+
+def test_gather_case_matches(cases, gather):
     """``use_blocks=False`` at nd = 3: initial state 2e-5, one step from a
     perturbed state 1e-4 with its resnorm, 3 steps of `case.march` 1e-3
     against the JAX gather case, and under 1e-3 against the port's own grid
@@ -107,9 +116,7 @@ def test_gather_case_matches(cases):
     from ibx_torch.ops import kernels as K
 
     _, blk = cases
-    jx = jx_build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False)
-    pt = build_sphere3d(wall_h=0.25, block_size=4, use_blocks=False,
-                        device="cpu")
+    jx, pt = gather
     assert pt.bt is None and jx.grid is None
     assert pt.dom.partitions[0].acc_left[2].width == 4
     assert chan_err(np.asarray(jx.P0), pt.P0.numpy()) < 2e-5
@@ -127,3 +134,18 @@ def test_gather_case_matches(cases):
     assert chan_err(grid, out) < 1e-3, chan_err(grid, out)
     with pytest.raises(ValueError, match="block marches"):
         pt.step(pt.P0, grid=True)
+
+
+def test_gather_case_of_a_block_case(gather):
+    """`gather_case` of a block case is what ``use_blocks=False`` builds:
+    the same Domain, a bit-equal solved mask and initial state, and a
+    bit-equal step."""
+    _, pt = gather
+    blk = build_sphere3d(wall_h=0.25, block_size=4, device="cpu")
+    g = gather_case(blk)
+    assert g.dom is blk.dom and g.bt is None and blk.bt is not None
+    assert torch.equal(g.active, pt.active) and torch.equal(g.P0, pt.P0)
+    P = t(_perturbed_flat(pt))
+    (a, ra), (b, rb) = g.step(P), pt.step(P)
+    assert torch.equal(a, b) and float(ra) == float(rb)
+    assert gather_case(g) is g

@@ -5,7 +5,7 @@ channel-split march (the kernels' plain versions) and on the grid march,
 against the JAX package's single-device step and its sharded march (bs=4
 is below the JAX package's cs gate, so its sharded run takes its grid
 path); the leftover-face glue of `rhs_cs.euler_rhs_cs` on each rank's
-local grid; and `dryrun_multichip(4)`."""
+local grid; and `dryrun_multichip(4)` (legs 1-4)."""
 
 import numpy as np
 import pytest
@@ -119,6 +119,6 @@ def test_leftover_glue_matches_torch_op_body():
 
 
 def test_dryrun_multichip():
-    """Legs 1, 2, 3 and 3b of the JAX package's dry run on 4 gloo ranks:
-    one step each, finite on every rank."""
+    """Legs 1, 2, 3, 3b and 4 (the RANS+FAS wing: 2 steps and a V-cycle)
+    of the JAX package's dry run on 4 gloo ranks, finite on every rank."""
     dryrun_multichip(P_RANKS)
