@@ -4,7 +4,11 @@ target).
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit:
+Every `case.march` on the card runs the step captured in a CUDA graph and
+replayed (`ibx_torch.utils.graphs`, the default on a CUDA state; the
+counterpart of the JAX package's `jit` over `fori_loop`); phase 30 holds
+each captured march against its eager loop (``graph=False``). Phases, in
+order; any failure ends the run with a non-zero exit:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels of ibx_torch/csrc with nvcc;
   3. kernel parity: each kernel (pass A with and without dt, pass B in
@@ -19,9 +23,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      channel-split step, the grid step with the fold, and the grid step
      with frozen gradients (its stage 2 on the torch-op body);
   5. main path: `build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16)` on
-     the card (5,308,416 cells), 2 warm-up steps, then 100 steps of
-     `case.march` (channel-split) timed with CUDA events; each of its three
-     kernels must have been launched twice a step, the fold never;
+     the card (5,308,416 cells), 2 warm-up steps (the first call
+     captures the step), then 100 steps of `case.march` (channel-split)
+     timed with CUDA events; each of its three kernels must have been
+     launched twice a step, the fold never (the counts of a captured step
+     are added on every replay);
   6. grid path: from the same case, 2 warm-up steps, then 20 steps of
      `case.march(..., grid=True, fold=True)`; a step must launch pass A
      twice, pass B once in each variant and the update kernel never;
@@ -160,6 +166,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (1e-4); the 881,152-cell flagship with `cutcell=True`, 50 steps from
      the freestream: finite, ms a step, the card's busy time, build s;
      the four kernel counters stay 0 over phases 27-29;
+ 30. the compiled march against the eager loop, on the full-width cases
+     of the phases above (the sphere after phase 26: channel-split, grid
+     with and without the fold, grid with frozen gradients; its gather
+     march in phase 16; the flagship's block march and `march_robust`
+     after phase 10, its gather march after phase 13; both RANS cases on
+     both marches in phase 20, before their first march): 5 captured
+     steps against 5 eager ones, bit-equal (or within eager's own spread,
+     at most 1e-6, where eager differs from eager); launches a step by the
+     counters and by the kernels' names in a `torch.profiler` trace of one
+     replay, equal to eager's (3D channel-split 2/2/2, grid with the fold
+     pass A 2, pass B 1, fold 1; every 2D and RANS march 0); ms a step
+     and the card's busy ms a step each way; peak memory each way and the
+     memory the captured step keeps;
+ 31. the point-implicit step at nd = 3 (after phase 16): the bs=8 sphere
+     (wall_h=0.125), ``g`` at Q_n and its JVP with the frozen limiter card
+     vs CPU (1e-4), then one step on the card (cfl 5, relax 0.8, the
+     freeze mask): finite, linear ratio under 1, its seconds; the
+     explicit bound at Q_n launches pass A and pass B once, the
+     differentiated residual no kernel;
+ 32. the padded formulation of `face_accumulate` against concat
+     (`block_ops._PADDED_FACES`), eager: bit-equal over 3 steps and the
+     card's busy ms a step of each, traced in turns, on the flagship's
+     block march (after phase 30 there) and on the sphere's grid march
+     with the fold and with frozen gradients (after phase 30 there);
 then one JSON line of per-kernel numbers (with each kernel's launches a
 step on the sharded channel-split march), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -251,6 +281,7 @@ VERDICT_ITERS = 25
 FAS_FULL_CALLS = 5
 FAS_FULL_ITERS = 10
 PI_STEPS = 2
+PI3D_STEPS = 5           # phase 31's state: steps from the freestream
 # the multi-device runtime (phases 24-26)
 SHARD_RANKS = 4
 SHARD_RAE = dict(wall_h=4e-2, feature_h=2e-2, cfl=0.7)   # 21,760 cells
@@ -285,6 +316,15 @@ WING_CL_TOL = 1e-4
 # the block march's mirror and cut-cell walls (phase 29)
 WALLS_SMALL = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7)   # 16,768 cells
 CUT_FULL_STEPS = 50
+
+# the compiled march (phases 30-32): captured against eager, the padded
+# face formulation against concat
+GRAPH_STEPS = 5          # graphed vs eager steps, bit-equal
+GRAPH_TIMED = 20         # steps timed each way
+GRAPH_TOL = 1e-6         # where eager differs from eager (atomic sums)
+PADDED_STEPS = 3         # eager steps a formulation, traced
+GRAPH_ROWS = []          # one row a march of phase 30
+PADDED_ROWS = []         # one row a march of phase 32
 
 # float32 operations a cell, counted from the kernels' expressions
 # (an add, mul, div, min/max, abs or sqrt each counts one)
@@ -652,6 +692,18 @@ def rae2822_phases(root, dev, smi):
     acts, busy_ms, wall_ms = profile_busy(lambda: case.march(P, 5), 5,
                                           "breakdown2d", ms_step)
     log(f"[2d] card: {smi}")
+
+    # 30 and 32 on the flagship's block march
+    t0 = time.perf_counter()
+    graph_phase("flagship block", lambda X, n, graph: case.march(
+        X, n, graph=graph), P, {}, case=case)
+    graph_phase("flagship block, march_robust",
+                lambda X, n, graph: case.march_robust(X, n, graph=graph),
+                P, {}, case=case)
+    padded_phase("flagship block", lambda X, n, graph: case.march(
+        X, n, graph=graph), P)
+    log(f"[graph] phases 30 and 32 on the flagship's block march took "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sharded_flagship(root, case, smi, dict(ms_step=ms_step, busy_ms=busy_ms))
     log(f"[shard25] phase 25 took {time.perf_counter() - t0:.1f} s")
@@ -794,6 +846,8 @@ def gather_phases(root, dev, smi, blk):
         f"{case.build_seconds:.1f} vs {blk['build_seconds']:.1f} s, Cl "
         f"{cl:.5f} vs {blk['cl']:.5f}, Cd {cd:.5f} vs {blk['cd']:.5f}; "
         f"card: {smi}")
+    graph_phase("flagship gather", lambda X, n, graph: case.march(
+        X, n, graph=graph), P, {}, case=case)
     del case, part, P
 
     # 14. 3D gather
@@ -886,6 +940,8 @@ def gather3d_full(smi, blk3d, case3d):
     log(f"[gather3d-full] beside the block marches of this run: ms/step "
         f"{ms_step:.3f} (device busy {busy_ms:.3f}) vs channel-split "
         f"{blk3d['cs_ms_step']:.3f} and grid {blk3d['grid_ms_step']:.3f}")
+    graph_phase("sphere gather", lambda X, n, graph: case.march(
+        X, n, graph=graph), case.P0, {}, case=case)
     del case, part, P
     dom._partitions = None          # the gather tables' memory back
 
@@ -983,6 +1039,10 @@ def rans_phases(dev, smi):
     assert float(Rt.max()) > 10 * case.Rt_inf and float(Rt.min()) >= 0.0
     assert cp.max() > 0.6 and cp.min() < -0.4
     assert np.isfinite(cf).all() and 1e-4 < cf_mid < 5e-2
+    ms = [timed_march(lambda X, n, graph: case.march(*X, n, graph=graph),
+                      (P, Rt), 10, g)[0] for g in (True, False)]
+    log(f"[rans-ref] the airfoil's march {ms[0]:.3f} ms a step graphed, "
+        f"{ms[1]:.3f} eager (CUDA events over 10 steps)")
     del case
     t0 = time.perf_counter()
     plate = build_flat_plate(device=dev, **PLATE_REF)
@@ -1023,6 +1083,9 @@ def rans_phases(dev, smi):
             case = build(use_blocks=ub)
             tag = f"{label}, {'block' if ub else 'gather'} march"
             assert case.dom.ncells == cells and case.P0.device.type == "cuda"
+            graph_phase(tag, lambda X, n, graph: case.march(
+                *X, n, graph=graph), (case.P0, case.Rt0), {})
+            torch.cuda.reset_peak_memory_stats()
             P, Rt = case.march(case.P0, case.Rt0, 2)
             torch.cuda.synchronize()
             e0 = torch.cuda.Event(enable_timing=True)
@@ -1822,7 +1885,8 @@ def _sharded_rank(device, smi, wing_dir):
     # the 3D sphere on the channel-split march: passes A and B and the
     # update on this rank's local grid and own chunk
     sph = build_sphere3d(wall_h=SHARD_SPHERE_WALL_H, device=dev)
-    ref = {1: sph.step(sph.P0)[0].cpu(), 5: sph.march(sph.P0, 5).cpu()}
+    ref = {1: sph.step(sph.P0)[0].cpu(),
+           5: sph.march(sph.P0, 5, graph=False).cpu()}
     sbd, step, P, _ = build_sphere3d_block_sharded(SHARD_RANKS, case=sph,
                                                    cfl=sph.cfl)
     bt = sbd.bt
@@ -2307,6 +2371,292 @@ def sharded_sphere_full(case, smi, cs_ms_step):
     return {k: launches[k] // SHARD_SPHERE_STEPS for k in launches}
 
 
+def kernel_name_counts(events):
+    """Launches of each kernel counter's kernel among the device events of
+    a `torch.profiler` trace, by the kernel's name (demangled or not)."""
+    from ibx_torch.ops import kernels as K
+
+    counts = dict.fromkeys(K.launches, 0)
+    for e in events:
+        n = e.name
+        if "rk2_update_kernel" in n:
+            counts["rk2_update"] += 1
+        elif "euler_pass_a_kernel" in n:
+            counts["euler_pass_a"] += 1
+        elif "euler_pass_b_kernel" in n:
+            m = re.search(r"euler_pass_b_kernel<\s*\d+\s*,\s*([^>]+)>", n) \
+                or re.search(r"euler_pass_b_kernelILi\d+ELb(\d)E", n)
+            fold = m is not None and m.group(1).strip() in ("true", "1")
+            counts["euler_pass_b_fold" if fold else "euler_pass_b"] += 1
+    return counts
+
+
+def device_trace(fn, n_steps):
+    """One `torch.profiler` trace of ``fn`` (``n_steps`` steps): (device
+    busy ms a step, device activities a step, launches a step of each
+    kernel by name)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    assert ev and busy > 0, "torch.profiler recorded no device time"
+    named = {k: v / n_steps for k, v in kernel_name_counts(ev).items()}
+    return busy / n_steps, len(ev) / n_steps, named
+
+
+def state_err(ref, out):
+    """`chan_err` over a state: a tensor [N, C] or [N], or a tuple of
+    them (the RANS marches' (P, Rt))."""
+    if isinstance(ref, tuple):
+        return max(state_err(a, b) for a, b in zip(ref, out))
+    if ref.dim() == 1:
+        ref, out = ref[:, None], out[:, None]
+    return chan_err(ref, out)
+
+
+def state_equal(a, b):
+    if isinstance(a, tuple):
+        return all(state_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def timed_march(march, X, n, graph):
+    """(ms a step by CUDA events, ms a step by the host clock) of ``n``
+    steps of ``march``."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    march(X, n, graph=graph)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n, (time.perf_counter() - t0) / n * 1e3
+
+
+def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED):
+    """Phase 30 for one march, ``march(X, n, graph=...)`` from the state
+    ``X``: GRAPH_STEPS captured steps against as many eager ones
+    (bit-equal, or within eager's own spread where that is not 0 and at
+    most GRAPH_TOL), launches a step by the counters and by the kernels'
+    names in a `torch.profiler` trace (the graph's equal to eager's, and
+    to ``want`` where given), ms a step and busy ms a step each way, peak
+    memory each way and the memory the captured step keeps. With ``case``
+    the march captures into a fresh `Graphs` of the case's (its own
+    graphs come back after), so that the capture and its pool are this
+    phase's; without it, call this before the march's first graphed
+    call. Appends its row to GRAPH_ROWS."""
+    if case is not None:
+        from ibx_torch.utils.graphs import Graphs
+
+        keep, case._graphs = case._graphs, Graphs()
+        try:
+            return graph_phase(tag, march, X, want, None, timed)
+        finally:
+            case._graphs = keep
+    from ibx_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    eager = march(X, GRAPH_STEPS, graph=False)
+    eager_counts = {k: v / GRAPH_STEPS for k, v in K.launches.items()}
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    spread = state_err(eager, march(X, GRAPH_STEPS, graph=False))
+    # the first graphed call captures (after one eager warm-up step)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    march(X, 1, graph=True)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved0
+    K.reset_launches()
+    out = march(X, GRAPH_STEPS, graph=True)
+    graph_counts = {k: v / GRAPH_STEPS for k, v in K.launches.items()}
+    equal = state_equal(eager, out)
+    err = 0.0 if equal else state_err(eager, out)
+    # one step each way under the profiler: the kernels by name
+    busy_e, acts_e, named_e = device_trace(
+        lambda: march(X, 1, graph=False), 1)
+    busy_g, acts_g, named_g = device_trace(
+        lambda: march(X, 1, graph=True), 1)
+    ms_e, host_e = timed_march(march, X, timed, False)
+    ms_g, host_g = timed_march(march, X, timed, True)
+    row = dict(march=tag, steps=GRAPH_STEPS, bit_equal=equal, err=err,
+               eager_spread=spread, launches_a_step=graph_counts,
+               ms_graph=ms_g, ms_eager=ms_e, host_ms_graph=host_g,
+               host_ms_eager=host_e, busy_ms_graph=busy_g,
+               busy_ms_eager=busy_e, activities_graph=acts_g,
+               activities_eager=acts_e, capture_s=capture_s,
+               peak_gib_eager=eager_peak / 2**30,
+               peak_gib_graph=graph_peak / 2**30,
+               graph_pool_gib=held / 2**30)
+    log(f"[graph] {tag}: {GRAPH_STEPS} steps graphed vs eager: "
+        f"{'bit-equal' if equal else f'max per-channel error {err:.3e}'} "
+        f"(eager vs eager {spread:.3e}); launches a step by counter "
+        f"{graph_counts} (eager {eager_counts}), by kernel name in one "
+        f"replay {named_g} (eager step {named_e}); ms a step {ms_g:.3f} "
+        f"graphed vs {ms_e:.3f} eager (CUDA events over {timed}; host "
+        f"clock {host_g:.3f} vs {host_e:.3f}); device busy {busy_g:.3f} "
+        f"vs {busy_e:.3f} ms a step in {acts_g:.0f} vs {acts_e:.0f} "
+        f"activities; warm-up, capture and one replay {capture_s:.2f} s; "
+        f"peak memory {graph_peak / 2**30:.3f} GiB over them vs "
+        f"{eager_peak / 2**30:.3f} over the eager march (above what was "
+        f"held), kept by the captured step (its pool and state) "
+        f"{held / 2**30:.3f} GiB; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    GRAPH_ROWS.append(row)
+    if not equal:
+        assert 0.0 < spread <= GRAPH_TOL and err <= spread, (tag, err,
+                                                             spread)
+    assert graph_counts == eager_counts == named_g == named_e, (
+        tag, graph_counts, eager_counts, named_g, named_e)
+    if want is not None:
+        assert graph_counts == {k: float(want.get(k, 0))
+                                for k in K.launches}, (tag, graph_counts)
+    return row
+
+
+def sphere_graph_phases(case, smi):
+    """Phases 30 and 32 on phase 5's sphere (5,308,416 cells): the
+    channel-split march and the grid march with and without the fold and
+    with frozen gradients, graphed against eager; then the padded
+    formulation of `face_accumulate` against concat on the grid march
+    (where the kernel route leaves it off the path) and on the grid march
+    with frozen gradients (whose stage 2 is the torch-op body)."""
+    t0 = time.perf_counter()
+    P = case.P0
+    for tag, kw, want in (
+            ("sphere channel-split", {}, dict(
+                rk2_update=2, euler_pass_a=2, euler_pass_b=2)),
+            ("sphere grid, fold", dict(grid=True, fold=True), dict(
+                euler_pass_a=2, euler_pass_b=1, euler_pass_b_fold=1)),
+            ("sphere grid", dict(grid=True), dict(
+                euler_pass_a=2, euler_pass_b=2)),
+            ("sphere grid, frozen gradients",
+             dict(grid=True, freeze_gradients=True), dict(
+                 euler_pass_a=1, euler_pass_b=1))):
+        graph_phase(tag, lambda X, n, graph, kw=kw: case.march(
+            X, n, graph=graph, **kw), P, want, case=case)
+    log(f"[graph] phase 30 on the 3D block marches took "
+        f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    t0 = time.perf_counter()
+    for tag, kw in (("sphere grid, fold", dict(grid=True, fold=True)),
+                    ("sphere grid, frozen gradients",
+                     dict(grid=True, freeze_gradients=True))):
+        padded_phase(tag, lambda X, n, graph, kw=kw: case.march(
+            X, n, graph=graph, **kw), P)
+    log(f"[padded] phase 32 on the sphere took "
+        f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+
+
+def padded_phase(tag, march, X, n=PADDED_STEPS):
+    """Phase 32 for one march: ``n`` eager steps under the padded
+    formulation of `face_accumulate` against the concat one (bit-equal),
+    and the device's busy ms a step of each, traced in turns (concat,
+    padded, padded, concat)."""
+    from ibx_torch.ops import block_ops as bo
+
+    outs, busy = {}, {False: [], True: []}
+    try:
+        for padded in (False, True, True, False):
+            bo._PADDED_FACES = padded
+            if padded not in outs:
+                outs[padded] = march(X, n, graph=False)
+            busy[padded].append(device_trace(
+                lambda: march(X, n, graph=False), n)[0])
+    finally:
+        bo._PADDED_FACES = False
+    equal = state_equal(outs[False], outs[True])
+    bc, bp = (sum(busy[k]) / 2 for k in (False, True))
+    log(f"[padded] {tag}: {n} eager steps padded vs concat "
+        f"{'bit-equal' if equal else 'DIFFER'}; device busy ms a step "
+        f"concat {busy[False][0]:.3f}, {busy[False][1]:.3f}; padded "
+        f"{busy[True][0]:.3f}, {busy[True][1]:.3f} (padded/concat "
+        f"{bp / bc:.4f})")
+    PADDED_ROWS.append(dict(march=tag, bit_equal=equal,
+                            busy_ms_concat=busy[False],
+                            busy_ms_padded=busy[True]))
+    assert equal, f"{tag}: the padded formulation changed the march"
+
+
+def pi3d_phase(dev, smi):
+    """Phase 31: the point-implicit step at nd = 3 on the bs=8 sphere
+    (wall_h=0.125, 147,456 cells) from the flow of PI3D_STEPS steps from
+    the freestream: ``g`` at Q_n and its JVP card vs CPU (PI_TOL), then
+    one frozen-limiter step on the card (cfl 5, relax 0.8, the freeze
+    mask): finite, linear ratio under 1, its seconds; the explicit bound
+    at Q_n launches pass A and pass B once (the kernel route), the
+    differentiated residual none. Not from the perturbed state of phase
+    3: its pressure is uniform along z, where the JST sensor's 0/0 and
+    the limiter's ties sit at their kinks and an ulp moves g and its JVP
+    by O(1e-1) on either device (scripts/torch_pi3d_conditioning.py)."""
+    from ibx_torch.cases import build_sphere3d
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.solve import Linearization, point_implicit_step
+    from ibx_torch.solve.point_implicit_euler import newton_map
+
+    t_phase = time.perf_counter()
+    cg = build_sphere3d(wall_h=0.125, block_size=8, device=dev)
+    cc = build_sphere3d(wall_h=0.125, block_size=8, device="cpu")
+    P = cg.march(cg.P0, PI3D_STEPS)
+    kw = dict(cfl=PI_CFL, freeze_limiter=True)
+    K.reset_launches()
+    gfn, Qn = newton_map(cg.bt, cg.fluid, P, cg.apply_bcs,
+                         active=cg.active3.reshape(-1), **kw)
+    assert dict(K.launches) == dict(rk2_update=0, euler_pass_a=1,
+                                    euler_pass_b=1, euler_pass_b_fold=0), \
+        K.launches
+    cfn, Qnc = newton_map(cc.bt, cc.fluid, P.cpu(), cc.apply_bcs,
+                          active=cc.active3.reshape(-1), **kw)
+    rng = np.random.default_rng(9)
+    scale = Qnc.abs().amax(dim=0).numpy()
+    v = torch.as_tensor((rng.normal(size=tuple(Qnc.shape)) * 1e-3
+                         * scale).astype(np.float32))
+    Ac = Linearization(cfn, Qnc, cfn(Qnc))
+    K.reset_launches()
+    Ag = Linearization(gfn, Qn, gfn(Qn))
+    Jg = Ag(v.to(dev))
+    assert not any(K.launches.values()), K.launches
+    log(f"[pi3d] build_sphere3d(wall_h=0.125, block_size=8) "
+        f"({cg.dom.ncells} cells): the point-implicit map with the frozen "
+        f"limiter, card vs CPU")
+    check("g at Q_n (per channel)", chan_err(Ac.fx, Ag.fx.cpu()), PI_TOL)
+    check("JVP of g (per channel)", chan_err(Ac(v), Jg.cpu()), PI_TOL)
+    del cc, cfn, Ac, gfn, Ag
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P1, ratio = point_implicit_step(
+        cg.bt, cg.fluid, P, cg.apply_bcs, cfl=PI_CFL, relax=PI_RELAX,
+        active=cg.active3.reshape(-1), freeze_limiter=True, generator=gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    finite = bool(torch.isfinite(P1).all())
+    log(f"[pi3d] point_implicit_step(cfl={PI_CFL}, relax={PI_RELAX}, "
+        f"freeze_limiter=True, 8 Hutchinson samples, 8 Krylov iterations):"
+        f" linear ratio {float(ratio):.4f}, finite {finite}, {secs:.3f} s "
+        f"(host clock, synchronized), launches {dict(K.launches)}; phase "
+        f"31 took {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    assert finite and float(ratio) < 1.0, float(ratio)
+    return dict(ratio=float(ratio), seconds=secs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2345,12 +2695,16 @@ def main() -> int:
     for r in rows:
         r["sharded_launches_per_step"] = shard[r["name"]]
     log(f"[shard26] phase 26 took {time.perf_counter() - t0:.1f} s")
+    sphere_graph_phases(case3d, smi)
     t0 = time.perf_counter()
     gather3d_full(smi, blk3d, case3d)
     log(f"[gather3d-full] phase 16 took {time.perf_counter() - t0:.1f} s")
     # the sphere's tensors are no longer needed: free them before the 2D
     # phases, so that their peak memory is their own
     del case3d
+    gc.collect()
+    torch.cuda.empty_cache()
+    pi3d_phase(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
     blk = rae2822_phases(root, dev, smi)
@@ -2380,6 +2734,8 @@ def main() -> int:
     log(f"[new] phases 27-29 (with phase 27's four ranks inside phase 24) "
         f"after phase 24 took {time.perf_counter() - t0:.1f} s")
 
+    log("[graph] phase 30, one row a march: " + json.dumps(GRAPH_ROWS))
+    log("[padded] phase 32, one row a march: " + json.dumps(PADDED_ROWS))
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -46,7 +46,7 @@ class FlatPlateCase:
     Rt_inf: float
     reynolds: float        # Re over unit plate length
     step: Callable         # (P, Rt) -> (P, Rt, resnorm)
-    march: Callable        # (P, Rt, n) -> (P, Rt)
+    march: Callable        # (P, Rt, n, graph=None) -> (P, Rt)
     P0: torch.Tensor       # f32[N, 4]
     Rt0: torch.Tensor      # f32[N]
     apply_bcs: Callable    # (P, Rt) -> (P, Rt)

@@ -41,6 +41,7 @@ from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
 from ..topology.domain import Domain, require_device
+from ..utils.graphs import Graphs, march_loop
 
 RAE_DAT = os.path.join(os.path.dirname(__file__), "data", "rae2822.dat")
 FAMILIES = ("farfield", "wall")
@@ -77,6 +78,9 @@ class Rae2822Case:
     mirror: tuple = ()
     mirror_scale: Optional[torch.Tensor] = None
     cut3: Optional[dict] = None
+    # the captured steps of `march` and `march_robust`
+    _graphs: Graphs = dataclasses.field(default_factory=Graphs, init=False,
+                                        repr=False, compare=False)
 
     @property
     def blocks_on(self) -> bool:
@@ -119,12 +123,6 @@ class Rae2822Case:
                         self.flat_bcs, cfl=self.cfl,
                         high_order=self.high_order, active=self.active)
 
-    def _march(self, one, P, n_steps: int):
-        P3 = to_blocks(self.bt, P)
-        for _ in range(n_steps):
-            P3, _ = one(P3)
-        return to_flat(self.bt, P3)
-
     def step(self, P):
         """One pseudo step on the flat state: (P, resnorm)."""
         if not self.blocks_on:
@@ -132,19 +130,25 @@ class Rae2822Case:
         P3, res = self._grid_step(to_blocks(self.bt, P))
         return to_flat(self.bt, P3), res
 
-    def march(self, P, n_steps: int):
+    def march(self, P, n_steps: int, *, graph: Optional[bool] = None):
         """``n_steps`` pseudo steps from the flat state; on the block
-        march the state stays a block grid in between."""
+        march the state stays a block grid in between. On a CUDA state
+        the step runs captured in a CUDA graph and replayed
+        (`utils.graphs`, the counterpart of the JAX package's `jit` over
+        `fori_loop`) unless ``graph=False``; on the CPU the eager loop
+        runs (``graph=True`` raises there)."""
         if not self.blocks_on:
-            for _ in range(n_steps):
-                P, _ = self._gather_step(P)
-            return P
-        return self._march(self._grid_step, P, n_steps)
+            return march_loop(self._graphs, "gather", self._gather_step, P,
+                              n_steps, graph)
+        return to_flat(self.bt, march_loop(
+            self._graphs, "block", self._grid_step, to_blocks(self.bt, P),
+            n_steps, graph))
 
-    def march_robust(self, P, n_steps: int):
+    def march_robust(self, P, n_steps: int, *,
+                     graph: Optional[bool] = None):
         """First-order + Einfeldt RK2 march (``fix3 = 1`` everywhere): the
         positivity-safe relaxation for rough start-up states. Block march
-        only, as in the JAX package."""
+        only, as in the JAX package; ``graph`` as in `march`."""
         if not self.blocks_on:
             raise ValueError("march_robust needs the block march "
                              "(use_blocks=True, n_partitions=1)")
@@ -156,7 +160,9 @@ class Rae2822Case:
                 high_order=self.high_order, active3=self.active3,
                 fix3=ones3, cut3=self.cut3)
 
-        return self._march(one, P, n_steps)
+        return to_flat(self.bt, march_loop(
+            self._graphs, "robust", one, to_blocks(self.bt, P), n_steps,
+            graph))
 
 
 def build_rae2822(

@@ -44,7 +44,7 @@ class Rae2822RansCase:
     alpha: float
     reynolds: float
     step: Callable          # (P, Rt) -> (P, Rt, resnorm)
-    march: Callable         # (P, Rt, n) -> (P, Rt)
+    march: Callable         # (P, Rt, n, graph=None) -> (P, Rt)
     P0: torch.Tensor        # f32[N, 4]
     Rt0: torch.Tensor       # f32[N]
     apply_bcs: Callable     # (P, Rt) -> (P, Rt)

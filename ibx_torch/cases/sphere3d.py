@@ -33,6 +33,7 @@ from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
 from ..topology.domain import Domain, FusedBoundary, require_device
+from ..utils.graphs import Graphs, march_loop
 
 FAMILIES = ("farfield", "wall")
 
@@ -81,6 +82,9 @@ class Sphere3dCase:
     active: Optional[torch.Tensor]     # f32[N], the same mask
     P0: torch.Tensor          # f32[N, 5] flat initial state (ghosts set)
     build_seconds: float      # host build + table upload
+    # the captured steps of `march`, one a march variant
+    _graphs: Graphs = dataclasses.field(default_factory=Graphs, init=False,
+                                        repr=False, compare=False)
 
     def apply_bcs(self, P):
         """Ghost BCs on the flat [N, 5] state (a new tensor)."""
@@ -152,15 +156,19 @@ class Sphere3dCase:
         return to_flat_(X), res
 
     def march(self, P, n_steps: int, *, grid: bool = False,
-              freeze_gradients: bool = False, fold: bool = False):
+              freeze_gradients: bool = False, fold: bool = False,
+              graph: Optional[bool] = None):
         """``n_steps`` RK2 steps from the flat state (options as in
-        `step`); the state keeps its march's layout in between."""
+        `step`); the state keeps its march's layout in between. On a CUDA
+        state the step runs captured in a CUDA graph and replayed
+        (`utils.graphs`, the counterpart of the JAX package's `jit` over
+        `fori_loop`; one graph a march variant) unless ``graph=False``; on
+        the CPU the eager loop runs (``graph=True`` raises there)."""
         to_state, one, to_flat_ = self._march_fns(grid, freeze_gradients,
                                                   fold)
-        X = to_state(P)
-        for _ in range(n_steps):
-            X, _ = one(X)
-        return to_flat_(X)
+        key = (self.bt is None, grid, freeze_gradients, fold)
+        return to_flat_(march_loop(self._graphs, key, one, to_state(P),
+                                   n_steps, graph))
 
 
 def build_sphere3d(

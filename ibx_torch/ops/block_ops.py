@@ -1,21 +1,19 @@
 """Dense block-structured operators on the cell-major block grid
 ``[B, bs, ..., bs, C]`` (counterpart of `ibx/ops/block_ops.py`, nd = 2
 and 3): layout reshapes, the structured 2:1 interface corrections, the
-generic sparse leftover, `face_accumulate` (its default concat
-formulation) and `cell_gradient_grid` on it, the block Euler RHS `euler_rhs_grid` with the ``fix3``
-robustness blend, the ``cut3`` cut-cell wall, the ``viscous`` fluxes
-with an ``mu_t3`` field and, at nd = 3, its kernel route, implicit
-residual smoothing, and the grid marches `rk2_step_grid` /
-`euler_step_grid` with their flat wrappers. At nd = 2 every call takes
-the torch-op body: neither package has a kernel for it. The minmod
-limiter is `ibx_torch.ops.operators.minmod`.
-
-Not ported (ROADMAP queue 1 item 4, pending an H100 measurement): the
-``IBX_PADDED_FACES`` formulation of `face_accumulate`, a second
-formulation of the same numbers chosen on the TPU for its layout."""
+generic sparse leftover, `face_accumulate` (in both of the JAX
+package's formulations, concat by default and padded under
+``IBX_PADDED_FACES``) and `cell_gradient_grid` on it, the block Euler RHS
+`euler_rhs_grid` with the ``fix3`` robustness blend, the ``cut3``
+cut-cell wall, the ``viscous`` fluxes with an ``mu_t3`` field and, at
+nd = 3, its kernel route, implicit residual smoothing, and the grid
+marches `rk2_step_grid` / `euler_step_grid` with their flat wrappers. At
+nd = 2 every call takes the torch-op body: neither package has a kernel
+for it. The minmod limiter is `ibx_torch.ops.operators.minmod`."""
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +24,11 @@ from ..physics.fluid import (Fluid, primitive2state, speed_of_sound,
 from ..physics.flux import inviscid_fluxes_hll, viscous_fluxes
 from ..topology.blocks import BlockTables
 from .operators import abs_select, minmod
+
+# the face-array formulation of `face_accumulate`, read once at import as
+# the JAX package reads it (`ibx/ops/block_ops.py:38`): concat by default,
+# padded when IBX_PADDED_FACES is set and not "0"
+_PADDED_FACES = os.environ.get("IBX_PADDED_FACES", "0") != "0"
 
 
 def to_blocks(bt: BlockTables, u_flat):
@@ -102,8 +105,6 @@ def interface_corrections(
     which adds the same values to the same slots."""
     bs, nd = bt.block_size, bt.nd
     n_fine = 2 ** (nd - 1)
-    signed = torch.as_tensor(signed_mask, dtype=torch.float32,
-                             device=bt.h.device)
 
     def hshape(blocks):
         return bt.h[blocks, d].reshape((blocks.shape[0],) + (1,) * nd)
@@ -144,7 +145,8 @@ def interface_corrections(
                    torch.cat(hn))
     off = 0
     for s, blocks, Vf, Vc, h_own in sides:
-        sgn = torch.where(signed > 0, 1.0 if s == 1 else -1.0, 1.0)
+        # the owner's side flips the signed channels
+        sgn = 1.0 if s == 1 else bt.signs(signed_mask)
         fine = vals[off:off + Vf]
         sub = vals[off + Vf:off + Vf + n_fine * Vc].unflatten(
             0, (n_fine, Vc))
@@ -220,8 +222,7 @@ def _sparse_accum(bt: BlockTables, d: int, parts, face_fn: Callable,
 
     sp = bt.spacing_flat[:, d]
     vals = fn(gather(o), gather(n), sp[o][:, None], sp[n][:, None])
-    pm = torch.where(torch.as_tensor(signed_mask, dtype=vals.dtype,
-                                     device=vals.device) > 0, -1.0, 1.0)
+    pm = bt.signs(signed_mask)
     out = torch.zeros((bt.n_cells, n_out), dtype=vals.dtype,
                       device=vals.device)
     out.index_add_(0, o, wr[:, None] * vals)
@@ -237,18 +238,43 @@ def _generic_sparse(bt: BlockTables, d: int, parts, face_fn: Callable,
                          bt.sp_wr[d], bt.sp_wl[d])
 
 
+def _halos(bt: BlockTables, p, d: int):
+    """(first, last, halo_l, halo_r) planes of the part ``p`` along dim
+    ``d``: its own edge planes and the halo columns beside them (the dense
+    neighbor's edge plane; the own edge mirrored on one-sided boundary
+    sides; junk on 2:1 sides, whose faces are masked)."""
+    ax, bs = _axis(bt, d), bt.block_size
+    first = p.narrow(ax, 0, 1)
+    last = p.narrow(ax, bs - 1, 1)
+    bmask = (bt.n_blocks,) + (1,) * (p.dim() - 1)
+    halo_l = torch.where(bt.bnd[d][0].reshape(bmask) > 0, first,
+                         last.index_select(0, bt.nbr[d][0]))
+    halo_r = torch.where(bt.bnd[d][1].reshape(bmask) > 0, last,
+                         first.index_select(0, bt.nbr[d][1]))
+    return first, last, halo_l, halo_r
+
+
 def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
                     n_out: int, signed_mask: Sequence[float]):
     """Green-Gauss-style accumulation of per-face quantities into cells
-    along dim ``d`` (the JAX package's default concat formulation).
+    along dim ``d``.
 
     ``face_fn(W_owner, W_neighbor, h_owner, h_neighbor) -> [..., n_out]``;
     ``W3`` is one [B, bs, ..., bs, K] grid or a tuple of channel-part grids
     (``face_fn`` then receives tuples). Channels flagged in ``signed_mask``
     accumulate (right - left)/h, the others (right + left)/h. Each face is
-    evaluated once: interior faces on slice windows, block-edge faces on
-    the halo planes (dense neighbor's edge, own edge mirrored on one-sided
-    sides, masked to zero on 2:1 sides), the 2:1 rows of
+    evaluated once, in one of the JAX package's two formulations, equal
+    face by face (the same inputs, the same function, the same
+    divergence):
+
+    * concat (the default): interior faces on slice windows, block-edge
+      faces on the halo planes, one face array concatenated from the
+      three;
+    * padded (``_PADDED_FACES``, from IBX_PADDED_FACES): each part padded
+      once with its halo columns, the faces of its two unit-shifted
+      (bs+1)-windows.
+
+    Edge faces of 2:1 sides are masked to zero; the 2:1 rows of
     `interface_corrections` are added in place at the edge slots, and the
     generic sparse leftover, where the mesh has one, is added last."""
     tup = isinstance(W3, (tuple, list))
@@ -258,35 +284,34 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
     ax = _axis(bt, d)
     bs = bt.block_size
     h = _h_bcast(bt, d, 1)
+    halos = [_halos(bt, p, d) for p in parts]
 
-    # interior faces (i-1, i), i = 1..bs-1
-    lo_sl = tuple(p.narrow(ax, 0, bs - 1) for p in parts)
-    hi_sl = tuple(p.narrow(ax, 1, bs - 1) for p in parts)
-    F_int = fn(lo_sl, hi_sl, h, h)
+    def edge_masks(F):
+        shape = (bt.n_blocks,) + (1,) * (F.dim() - 1)
+        return (bt.edge_valid[d][0].reshape(shape),
+                bt.edge_valid[d][1].reshape(shape))
 
-    def bmask(v, like):
-        return v.reshape((bt.n_blocks,) + (1,) * (like.dim() - 1))
+    if _PADDED_FACES:
+        padded = [torch.cat([hl, p, hr], dim=ax)
+                  for p, (_, _, hl, hr) in zip(parts, halos)]
+        Fall = fn(tuple(q.narrow(ax, 0, bs + 1) for q in padded),
+                  tuple(q.narrow(ax, 1, bs + 1) for q in padded), h, h)
+        mask_l, mask_r = edge_masks(Fall)
+        inner = mask_l.new_ones(mask_l.shape[:ax] + (bs - 1,)
+                                + mask_l.shape[ax + 1:])
+        Fall = Fall * torch.cat([mask_l, inner, mask_r], dim=ax)
+    else:
+        # interior faces (i-1, i), i = 1..bs-1
+        F_int = fn(tuple(p.narrow(ax, 0, bs - 1) for p in parts),
+                   tuple(p.narrow(ax, 1, bs - 1) for p in parts), h, h)
+        mask_l, mask_r = edge_masks(F_int)
+        lo_face = fn(tuple(x[2] for x in halos), tuple(x[0] for x in halos),
+                     h, h) * mask_l
+        hi_face = fn(tuple(x[1] for x in halos), tuple(x[3] for x in halos),
+                     h, h) * mask_r
+        Fall = torch.cat([lo_face, F_int, hi_face], dim=ax)
 
-    firsts, lasts, halos_l, halos_r = [], [], [], []
-    for p in parts:
-        first = p.narrow(ax, 0, 1)
-        last = p.narrow(ax, bs - 1, 1)
-        halos_l.append(torch.where(bmask(bt.bnd[d][0], p) > 0, first,
-                                   last.index_select(0, bt.nbr[d][0])))
-        halos_r.append(torch.where(bmask(bt.bnd[d][1], p) > 0, last,
-                                   first.index_select(0, bt.nbr[d][1])))
-        firsts.append(first)
-        lasts.append(last)
-    n_trail = F_int.dim() - 1 - bt.nd
-    mask_l = bt.edge_valid[d][0].reshape(
-        (bt.n_blocks,) + (1,) * (bt.nd + n_trail))
-    mask_r = bt.edge_valid[d][1].reshape(mask_l.shape)
-    lo_face = fn(tuple(halos_l), tuple(firsts), h, h) * mask_l
-    hi_face = fn(tuple(lasts), tuple(halos_r), h, h) * mask_r
-
-    Fall = torch.cat([lo_face, F_int, hi_face], dim=ax)
-    sgn = torch.where(torch.as_tensor(signed_mask, dtype=F_int.dtype,
-                                      device=F_int.device) > 0, -1.0, 1.0)
+    sgn = bt.signs(signed_mask)
     out = (Fall.narrow(ax, 1, bs) + sgn * Fall.narrow(ax, 0, bs)) / h
 
     face_cat = cat_fn(fn, [p.shape[-1] for p in parts])
@@ -517,17 +542,20 @@ def _cut_wall(bt: BlockTables, P3, du_grids, R3, cut3):
 
 def euler_rhs_block(bt: BlockTables, fluid: Fluid, P, *,
                     high_order: bool = True, with_dt: bool = False,
-                    cfl: float = 0.8, frozen=None, fix=None):
+                    cfl: float = 0.8, frozen=None, fix=None,
+                    kernels: bool = True):
     """Flat-state wrapper of `euler_rhs_grid` ([N, C] in / [N, C] out);
-    ``frozen`` uses the flat (du_list, nu [N]) convention and ``fix`` is
-    the flat [N] robustness blend."""
+    ``frozen`` uses the flat (du_list, nu [N]) convention, ``fix`` is the
+    flat [N] robustness blend and ``kernels`` is `euler_rhs_grid`'s (False
+    forces the torch-op body, through which `torch.func.jvp` can pass)."""
     if frozen is not None:
         du_flat, nu = frozen
         frozen = ([to_blocks(bt, du) for du in du_flat],
                   to_blocks(bt, nu[:, None]))
     fix3 = None if fix is None else to_blocks(bt, fix[:, None])
     out = euler_rhs_grid(bt, fluid, to_blocks(bt, P), high_order=high_order,
-                         with_dt=with_dt, cfl=cfl, frozen=frozen, fix3=fix3)
+                         with_dt=with_dt, cfl=cfl, frozen=frozen, fix3=fix3,
+                         kernels=kernels)
     if not with_dt:
         return to_flat(bt, out)
     R3, dt3, (du_grids, nu3) = out

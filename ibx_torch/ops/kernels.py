@@ -425,14 +425,16 @@ def fold_du_ref(du, cols6):
     B, _, bs, _ = du.shape
     out = du.clone()
     o5 = out.view(B, 15, bs, bs, bs)
-    v4 = vals.view(vals.shape[0], 5, bs, bs)
+    # a block without a row adds the zero row last: no data-dependent
+    # shape, so that a CUDA graph can capture it
+    v4 = torch.cat([vals.view(vals.shape[0], 5, bs, bs),
+                    vals.new_zeros((1, 5, bs, bs))])
     for d in range(3):
         for s in range(2):
             r = rows[:, 2 * d + s].long()
-            blocks = torch.nonzero(r >= 0).flatten()
-            if blocks.numel():
-                o5[:, 5 * d:5 * d + 5].select(4 - d, bs - 1 if s else 0) \
-                    .index_add_(0, blocks, v4[r[blocks]])
+            idx = torch.where(r >= 0, r, v4.shape[0] - 1)
+            o5[:, 5 * d:5 * d + 5].select(4 - d, bs - 1 if s else 0) \
+                .add_(v4[idx])
     return out
 
 

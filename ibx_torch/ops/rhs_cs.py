@@ -133,8 +133,7 @@ def _leftover_add(bt: BlockTables, d: int, rows: Callable,
     sp = bt.spacing_flat[:, d]
     so, sn = sp[o][:, None], sp[n][:, None]
     vals = face_fn(rows(o), rows(n), so, sn)
-    pm = torch.where(torch.as_tensor(signed_mask, dtype=vals.dtype,
-                                     device=vals.device) > 0, -1.0, 1.0)
+    pm = bt.signs(signed_mask)
     to_o = bt.sp_wr[d][:, None] * vals / so
     to_n = bt.sp_wl[d][:, None] * vals * pm / sn
     for Xc, c0, k0, k1 in targets:

@@ -10,9 +10,11 @@ runs on the real physics: one backward-Euler pseudo step solves
 with Hutchinson-estimated block-diagonal preconditioning and the
 two-direction minimal-residual descent, all matrix-free via exact
 forward-mode JVPs (`torch.func.jvp`) through the flat-state block RHS
-`ops.block_ops.euler_rhs_block` and the caller's ghost BC. At nd = 2 that
-RHS is torch ops only. At nd = 3 it would reach the CUDA passes A and B,
-which have no forward derivative: the step refuses nd = 3.
+`ops.block_ops.euler_rhs_block` and the caller's ghost BC, at nd = 2 and
+3. The differentiated residual takes the RHS's torch-op body
+(``kernels=False``), the route the JAX package's RHS takes off the TPU;
+the CUDA passes A and B have no forward derivative. The explicit bound at
+Q_n, which is not differentiated, keeps the kernel route.
 """
 
 from __future__ import annotations
@@ -34,11 +36,6 @@ def newton_map(bt: BlockTables, fluid: Fluid, P, apply_bcs: Callable, *,
     """(g, Qn): the backward-Euler residual ``g(Q) = (Q - Qn) / dt -
     R(Q)`` of one pseudo step from the primitives ``P``, and ``Qn``, the
     conserved state it linearizes at (see `point_implicit_step`)."""
-    if bt.nd != 2:
-        raise NotImplementedError(
-            "point_implicit_step: nd = 3 needs forward-mode derivatives of "
-            "the CUDA passes A and B, which ibx_torch does not have yet "
-            "(ROADMAP queue 1 item 11)")
     Qn = primitive2state(fluid, torch.as_tensor(P))
 
     # pseudo-time scale from the explicit bound, relaxed by the implicit CFL
@@ -51,7 +48,7 @@ def newton_map(bt: BlockTables, fluid: Fluid, P, apply_bcs: Callable, *,
         Pq = physicality_guard(state2primitive(fluid, Q))
         Pq = apply_bcs(Pq)
         R = euler_rhs_block(bt, fluid, Pq, high_order=high_order,
-                            frozen=frozen)
+                            frozen=frozen, kernels=False)
         if active is not None:
             R = R * active[:, None]
         return R
@@ -80,9 +77,8 @@ def point_implicit_step(
     freeze_limiter: bool = False,
     generator: Optional[torch.Generator] = None,
 ):
-    """One backward-Euler pseudo step with point-implicit preconditioning,
-    on a 2D block mesh (``bt.nd == 2``; nd = 3 raises
-    `NotImplementedError`).
+    """One backward-Euler pseudo step with point-implicit preconditioning
+    on a block mesh (nd = 2 or 3).
 
     ``P`` is the flat [N, 4] primitive state and ``apply_bcs`` the ghost BC
     on it; both must admit forward-mode JVPs (torch ops, in-place writes

@@ -33,12 +33,13 @@ from ..physics.fluid import (
 )
 from ..physics.turbulence import shear_rate, wray_agarwal
 from ..solve.euler import euler_rhs
+from ..utils.graphs import Graphs, march_loop
 
 
 @dataclasses.dataclass
 class RansMarch:
     step: Callable       # (P, Rt) -> (P, Rt, resnorm)
-    march: Callable      # (P, Rt, n) -> (P, Rt)
+    march: Callable      # (P, Rt, n, graph=None) -> (P, Rt)
     apply_bcs: Callable  # (P, Rt) -> (P, Rt)
 
 
@@ -199,7 +200,9 @@ def build_rans_march(
     on both marches, as in the JAX package. ``use_blocks`` takes the block
     march, whose ghost BC is one `GhostBC` over the fused state with
     ``blocked_bcs`` as its callbacks (``dense_families`` is accepted and
-    ignored, see `GhostBC.from_numpy`)."""
+    ignored, see `GhostBC.from_numpy`). ``march(P, Rt, n, graph=None)``
+    runs the step captured in a CUDA graph on a CUDA state unless
+    ``graph=False``, and the eager loop on the CPU (`utils.graphs`)."""
     nd = dom.nd
     nch = 2 + nd
     dev = dom.device
@@ -214,6 +217,8 @@ def build_rans_march(
         d_wall = dev_f32(wall_distance)
         if mixing_length_cap is not None:
             l_cap = dev_f32(mixing_length_cap)
+
+    graphs = Graphs()
 
     def apply_bcs(P, Rt):
         Rt2 = Rt[:, None]
@@ -264,12 +269,10 @@ def build_rans_march(
             S2, res = one_step3(fused(P, Rt))
             return split(S2) + (res,)
 
-        def march(P, Rt, n):
+        def march(P, Rt, n, graph=None):
             # grid-native: the state stays [B, bs.., nch+1] through the loop
-            S3 = fused(P, Rt)
-            for _ in range(n):
-                S3 = one_step3(S3)[0]
-            return split(S3)
+            return split(march_loop(graphs, "block", one_step3,
+                                    fused(P, Rt), n, graph))
 
         return RansMarch(step=step, march=march, apply_bcs=apply_bcs)
 
@@ -354,9 +357,11 @@ def build_rans_march(
         resnorm = (R0[:, 0] * active).abs().max()
         return P2, Rt2, resnorm
 
-    def march(P, Rt, n):
-        for _ in range(n):
-            P, Rt, _ = step(P, Rt)
-        return P, Rt
+    def one(X):
+        P2, Rt2, res = step(*X)
+        return (P2, Rt2), res
+
+    def march(P, Rt, n, graph=None):
+        return march_loop(graphs, "gather", one, (P, Rt), n, graph)
 
     return RansMarch(step=step, march=march, apply_bcs=apply_bcs)

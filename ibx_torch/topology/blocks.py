@@ -72,6 +72,22 @@ class BlockTables:
     nd: int
     n_cells: int
     n_sparse: int
+    # sign vectors of the accumulations, one per mask (`signs`)
+    _signs: Dict[Tuple[float, ...], torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    def signs(self, signed_mask) -> torch.Tensor:
+        """f32 [len(signed_mask)] on this table's device: -1 on the
+        channels ``signed_mask`` flags, 1 elsewhere. Each mask is uploaded
+        once, at its first use, so that a step copies nothing from the host
+        (a CUDA graph cannot capture that copy)."""
+        key = tuple(float(v) for v in signed_mask)
+        out = self._signs.get(key)
+        if out is None:
+            out = torch.tensor([-1.0 if v > 0 else 1.0 for v in key],
+                               dtype=torch.float32, device=self.h.device)
+            self._signs[key] = out
+        return out
 
     @classmethod
     def from_numpy(cls, f: Dict[str, object], device) -> "BlockTables":

@@ -168,24 +168,24 @@ def _cut_metrics(dom, seed=0, n_faces=40, n_wall=30):
     return cm
 
 
-@pytest.mark.parametrize("option", ["viscous", "mu_t3", "cut3",
-                                    "cs_freeze"])
-def test_unported_options_raise(setup, cases, sphere, option):  # noqa: F811
-    """The grid path's options that the port once refused. Only
-    ``cs_freeze`` still raises (``freeze_gradients`` on the channel-split
-    march, instead of being ignored). ``viscous``, ``mu_t3`` and ``cut3``
-    (the cut-cell wall's tables, here a synthetic set at nd = 3) are
-    ported: they take the torch-op body (no kernel launch) and match the
-    JAX grid path at 2e-4 per channel (dt under ``cut3`` at rtol 1e-5).
-    The name dates from when all four raised."""
+def test_cs_march_refuses_freeze_gradients(cases):
+    """``freeze_gradients`` on the channel-split march raises instead of
+    being ignored: it needs the grid march."""
+    pt = cases[1]
+    with pytest.raises(ValueError, match="grid"):
+        pt.step(pt.P0, freeze_gradients=True)
+
+
+@pytest.mark.parametrize("option", ["viscous", "mu_t3", "cut3"])
+def test_grid_options_match_ibx(setup, sphere, option):  # noqa: F811
+    """``viscous``, ``mu_t3`` and ``cut3`` (the cut-cell wall's tables,
+    here a synthetic set at nd = 3) on the grid path take the torch-op
+    body (no kernel launch), change R and match the JAX grid path at 2e-4
+    per channel (dt under ``cut3`` at rtol 1e-5)."""
     bt, tb, P3n = setup
     fl, P3 = make_fluid(), t(P3n)
     one = torch.ones(P3.shape[:-1] + (1,))
-    if option == "cs_freeze":
-        pt = cases[1]
-        with pytest.raises(ValueError, match="grid"):
-            pt.step(pt.P0, freeze_gradients=True)
-    elif option == "cut3":
+    if option == "cut3":
         cm = _cut_metrics(sphere[0])
         jcut = dict(
             owner=tuple(jnp.asarray(o) for o in cm["owner"]),

@@ -20,9 +20,9 @@ whole-step parity is held through the step's deterministic parts:
 - `solve` with the same map, right-hand side and inverse diagonal, with and
   without multigrid cycling: x within 1e-4 relative, the ratio too.
 
-Then the reference's block-system test on the port, the refusal at nd = 3,
-and one port step on the fixture (finite, the linear solve making
-progress)."""
+Then the reference's block-system test on the port and one port step on
+the fixture (finite, the linear solve making progress). The step at nd = 3
+is held in `tests/test_torch_point_implicit_3d.py`."""
 
 import numpy as np
 import pytest
@@ -37,7 +37,6 @@ from ibx.physics import fluid as jfluid
 from ibx.solve import multigrid_levels as jx_levels
 from ibx.solve import point_implicit as jpi
 
-from ibx_torch.cases import build_sphere3d
 from ibx_torch.convert import state_from_numpy, stencil_from_numpy
 from ibx_torch.ops import kernels as K
 from ibx_torch.ops.block_ops import to_blocks, to_flat
@@ -266,15 +265,6 @@ def test_linearization_matches_jax_jvp_euler(rae, freeze_limiter):
     assert chan_err(np.asarray(jQn), Qn.numpy()) < 1e-6
     assert chan_err(np.asarray(ref_g), g(Qn).numpy()) < 2e-4
     assert chan_err(np.asarray(ref_jvp), out.numpy()) < 2e-4
-
-
-def test_point_implicit_step_refuses_3d():
-    """At nd = 3 the JVP would reach the CUDA passes A and B, which have no
-    forward derivative: the step raises and names the ROADMAP item."""
-    case = build_sphere3d(wall_h=0.25, block_size=4, device="cpu")
-    assert case.bt.nd == 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        point_implicit_step(case.bt, case.fluid, case.P0, case.apply_bcs)
 
 
 def test_point_implicit_step_on_rae2822(rae):

@@ -215,12 +215,10 @@ def test_viscous_block_parity(setup, mu):
     assert _scaled_err(jref, out) < 2e-4, _scaled_err(jref, out)
 
 
-def test_block_cut3_still_raises(setup):
+def test_block_cut3_all_open_is_plain_rhs(setup):
     """The block RHS's ``cut3`` (the cut-cell wall) with an all-open
     geometry (no cut face, no wall cell, alpha = 1) leaves R and dt
-    bit-equal to the plain block RHS; an incomplete table raises. The
-    option is ported: only the incomplete table still raises (the name
-    dates from when the whole option was refused)."""
+    bit-equal to the plain block RHS; an incomplete table raises."""
     _, _, blk, _ = setup
     P3 = bo.to_blocks(blk.bt, torch.as_tensor(perturbed(blk, seed=4)))
     empty = np.zeros(0, np.int32)
