@@ -6,9 +6,11 @@ target).
 
 Every `case.march` on the card runs the step captured in a CUDA graph and
 replayed (`ibx_torch.utils.graphs`, the default on a CUDA state; the
-counterpart of the JAX package's `jit` over `fori_loop`); phase 30 holds
-each captured march against its eager loop (``graph=False``). Phases, in
-order; any failure ends the run with a non-zero exit:
+counterpart of the JAX package's `jit` over `fori_loop`), and so do the
+sharded marches and steps and the wing's march and FAS cycle on one NCCL
+rank (a gloo rank stays eager); phase 30 holds each captured march
+against its eager loop (``graph=False``). Phases, in order; any failure
+ends the run with a non-zero exit:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels of ibx_torch/csrc with nvcc;
   3. kernel parity: each kernel (pass A with and without dt, pass B in
@@ -137,15 +139,15 @@ order; any failure ends the run with a non-zero exit:
      then the four-rank part of phase 27;
  25. the flagship on one rank (in phase 10's place, NCCL, this process):
      `build_rae2822_block_sharded(1, case=<phase 9's case>, overlap=True)`
-     from the oracle's state, 2 warm-up and 100 timed steps, Cl in the
-     band, no kernel launched, ms a step, peak memory and the card's busy
-     time beside phases 9 and 10;
+     from the oracle's state, 2 warm-up steps (the first captures) and
+     100 timed, Cl in the band, no kernel launched, ms a step, peak memory
+     and the card's busy time beside phases 9 and 10;
  26. the production sphere on one rank (after phase 7, NCCL, this
      process): `build_sphere3d_block_sharded(1, case=<phase 5's case>)`,
-     2 warm-up and 20 timed steps launching 2/2/2 kernels a step and no
-     fold, ms a step, busy time (beside the single-device march's) and
-     peak memory, and 5 steps within 1e-6 of the single-device
-     channel-split march;
+     2 warm-up steps (the first captures) and 20 timed, launching 2/2/2
+     kernels a step and no fold, ms a step, busy time (beside the
+     single-device march's) and peak memory, and 5 steps within 1e-6 of
+     the single-device channel-split march;
  27. the 3D RANS wing with FAS (workload 5) at tests/test_wing3d_fas.py's
      size (4096 cells): `build_wing3d_rans_fas(1)` on the card against
      the same on the CPU (one rank each, this process), 2 steps and one
@@ -159,8 +161,9 @@ order; any failure ends the run with a non-zero exit:
      its wall Cp and Cl against the oracle's (1e-4), 100 steps with Cl in
      the oracle's tail band (mean +- 3 sigma + 1e-4 of the last quarter
      of its history) and res_norms L2 within 0.5-2x the oracle's last,
-     one FAS cycle finite and physical; ms a step and a cycle, the card's
-     busy time, build s and peak memory;
+     one FAS cycle finite and physical (the cycle captured first, then
+     timed from the same state); ms a step and a cycle, the card's busy
+     time, build s and peak memory;
  29. the block march's walls: `build_rae2822(mirror_wall=True)` and
      `build_rae2822(cutcell=True)` at wall_h=8e-2, one step card vs CPU
      (1e-4); the 881,152-cell flagship with `cutcell=True`, 50 steps from
@@ -171,14 +174,19 @@ order; any failure ends the run with a non-zero exit:
      with and without the fold, grid with frozen gradients; its gather
      march in phase 16; the flagship's block march and `march_robust`
      after phase 10, its gather march after phase 13; both RANS cases on
-     both marches in phase 20, before their first march): 5 captured
-     steps against 5 eager ones, bit-equal (or within eager's own spread,
-     at most 1e-6, where eager differs from eager); launches a step by the
-     counters and by the kernels' names in a `torch.profiler` trace of one
-     replay, equal to eager's (3D channel-split 2/2/2, grid with the fold
-     pass A 2, pass B 1, fold 1; every 2D and RANS march 0); ms a step
-     and the card's busy ms a step each way; peak memory each way and the
-     memory the captured step keeps;
+     both marches in phase 20, before their first march; on one NCCL
+     rank: the sharded flagship's block march without and with the
+     overlap split in phase 25, the sharded sphere's channel-split march
+     in phase 26, the sharded gather step on phase 13's case after phase
+     13, the wing's march and FAS cycle in phase 28): 5 captured steps
+     (2 cycles) against as many eager ones, bit-equal (or within eager's
+     own spread, at most 1e-6, where eager differs from eager); launches
+     a step by the counters and by the kernels' names in a
+     `torch.profiler` trace of one replay, equal to eager's (3D
+     channel-split 2/2/2, sharded too, grid with the fold pass A 2, pass
+     B 1, fold 1; every 2D, RANS and wing march 0); ms a step and the
+     card's busy ms a step each way; peak memory each way and the memory
+     the captured step keeps;
  31. the point-implicit step at nd = 3 (after phase 16): the bs=8 sphere
      (wall_h=0.125), ``g`` at Q_n and its JVP with the frozen limiter card
      vs CPU (1e-4), then one step on the card (cfl 5, relax 0.8, the
@@ -190,6 +198,14 @@ order; any failure ends the run with a non-zero exit:
      card's busy ms a step of each, traced in turns, on the flagship's
      block march (after phase 30 there) and on the sphere's grid march
      with the fold and with frozen gradients (after phase 30 there);
+ 33. the bench (after phase 16, before phase 5's sphere is freed): the
+     legs of `python -m ibx_torch.bench` at its defaults through its
+     functions, 300 steps each after a warm-up of 2 that captures: the
+     881,152-cell flagship at cfl 0.5 (built here), the same case on the
+     one-rank sharded runtime with ``overlap=True`` and phase 5's sphere
+     (`build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16)`, the bench's
+     own 3D case); the bench's JSON line, with its ``sharded_1dev`` and
+     ``sphere3d`` figures (no ``err:``), on a line of its own;
 then one JSON line of per-kernel numbers (with each kernel's launches a
 step on the sharded channel-split march), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -200,7 +216,6 @@ available or when the ibx_torch package is not beside it.
 
 from __future__ import annotations
 
-import contextlib
 import gc
 import json
 import re
@@ -322,6 +337,7 @@ CUT_FULL_STEPS = 50
 GRAPH_STEPS = 5          # graphed vs eager steps, bit-equal
 GRAPH_TIMED = 20         # steps timed each way
 GRAPH_TOL = 1e-6         # where eager differs from eager (atomic sums)
+WING_GRAPH_CYCLES = 2    # the wing's FAS cycle: cycles each way, timed
 PADDED_STEPS = 3         # eager steps a formulation, traced
 GRAPH_ROWS = []          # one row a march of phase 30
 PADDED_ROWS = []         # one row a march of phase 32
@@ -848,6 +864,7 @@ def gather_phases(root, dev, smi, blk):
         f"card: {smi}")
     graph_phase("flagship gather", lambda X, n, graph: case.march(
         X, n, graph=graph), P, {}, case=case)
+    sharded_gather_graph(case, P)
     del case, part, P
 
     # 14. 3D gather
@@ -886,6 +903,23 @@ def gather_phases(root, dev, smi, blk):
     assert r4.device.type == dev.type and min(n_dom) > d4.n_own
     check("mapped euler_rhs, 4 partitions vs 1 (per channel, scaled)",
           scaled_err(r1, r4), 1e-5)
+
+
+def sharded_gather_graph(case, P):
+    """Phase 30 on the sharded gather step of one rank (NCCL, this
+    process) over phase 13's flagship gather case, from its state ``P``:
+    one replay a call."""
+    from ibx_torch.cases import build_rae2822_sharded
+    from ibx_torch.parallel import one_rank_group
+
+    t0 = time.perf_counter()
+    with one_rank_group("nccl"):
+        sdom, step, _, _ = build_rae2822_sharded(1, case=case, cfl=case.cfl)
+        assert sdom.mesh.backend == "nccl"
+        graph_phase("one-rank sharded gather step", call_march(step),
+                    sdom.distribute(P), {}, case=sdom)
+    log(f"[graph] phase 30 on the one-rank sharded gather step took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def gather3d_full(smi, blk3d, case3d):
@@ -1761,25 +1795,6 @@ def sphere_phases(dev):
     return rows, dict(cs_ms_step=ms_step, grid_ms_step=g_ms_step), case
 
 
-@contextlib.contextmanager
-def one_rank_group(backend):
-    """A process group of one rank (this process) over a ``file://`` store
-    in a temporary directory, destroyed on exit."""
-    import torch.distributed as dist
-
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            backend, init_method="file://" + str(Path(tmp) / "store"),
-            world_size=1, rank=0)
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
-            # a group held in a reference cycle lives until the collector
-            # runs; torn down at interpreter exit it aborts the process
-            gc.collect()
-
-
 def gather_step_one(case, P):
     """The sharded gather march's step (`build_rae2822_sharded`) on the
     one partition of ``case`` (a one-partition gather case): each BC
@@ -2027,6 +2042,7 @@ def wing_small(smi, wing_dir):
     physical check on the card (twice 20 steps and a cycle)."""
     from ibx_torch.cases import build_wing3d_rans_fas
     from ibx_torch.ops import kernels as K
+    from ibx_torch.parallel import one_rank_group
 
     t0 = time.perf_counter()
     with one_rank_group("gloo"):
@@ -2103,6 +2119,7 @@ def wing_full(root, smi):
     kernel launched."""
     from ibx_torch.cases import build_wing3d_rans_fas
     from ibx_torch.ops import kernels as K
+    from ibx_torch.parallel import one_rank_group
 
     ref = np.load(root / WING_ORACLE)
     hist = ref["hist"]
@@ -2159,7 +2176,12 @@ def wing_full(root, smi):
         assert np.isfinite(Sn).all(), "non-finite wing state"
         assert abs(cl - tail.mean()) < band, (cl, tail.mean(), band)
         assert 0.5 * l2_ref < l2 < 2.0 * l2_ref, (l2, l2_ref)
+        # the first call captures the cycle (after one eager cycle); the
+        # timed call replays it from the same state
+        t0 = time.perf_counter()
+        wc.fas_cycle(S)
         torch.cuda.synchronize()
+        capture_cycle_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         e0.record()
         S, res = wc.fas_cycle(S)
@@ -2170,7 +2192,8 @@ def wing_full(root, smi):
         Sn = wc.collect(S)
         launches = dict(K.launches)
         peak = torch.cuda.max_memory_allocated()
-        log(f"[wing-full] one FAS cycle (n_coarse_iter 8): {ms_cycle:.1f} "
+        log(f"[wing-full] one FAS cycle (n_coarse_iter 8), captured "
+            f"(warm-up and capture {capture_cycle_s:.1f} s): {ms_cycle:.1f} "
             f"ms (CUDA events; host clock {host_cycle:.1f}), residual "
             f"{float(res):.4e}; finite {bool(np.isfinite(Sn).all())}, p "
             f"{Sn[:, 0].min():.1f} to {Sn[:, 0].max():.1f}, T min "
@@ -2182,6 +2205,16 @@ def wing_full(root, smi):
         assert launches == zero, launches
         acts, busy_ms, _ = profile_busy(lambda: wc.march(S, 1), 1,
                                         "wing-full", ms_step)
+        # 30 on the wing's march and its FAS cycle (the march's graph is
+        # its step's)
+        t0 = time.perf_counter()
+        graph_phase("wing march", lambda X, n, graph: wc.march(
+            X, n, graph=graph), S, {}, case=wc.sbd)
+        graph_phase("wing FAS cycle", call_march(wc.fas_cycle), S, {},
+                    case=wc.sbd, timed=WING_GRAPH_CYCLES,
+                    steps=WING_GRAPH_CYCLES)
+        log(f"[graph] phase 30 on the wing took "
+            f"{time.perf_counter() - t0:.1f} s")
         del wc, S
     out = dict(ms_step=ms_step, host_ms=host_ms, busy_ms=busy_ms,
                activities=acts, ms_cycle=ms_cycle, build_s=build_s,
@@ -2263,6 +2296,7 @@ def sharded_flagship(root, case, smi, blk):
     from ibx_torch.cases import build_rae2822_block_sharded
     from ibx_torch.cases import force_coefficients
     from ibx_torch.ops import kernels as K
+    from ibx_torch.parallel import one_rank_group
 
     zero = dict.fromkeys(K.launches, 0)
     with one_rank_group("nccl"):
@@ -2308,6 +2342,17 @@ def sharded_flagship(root, case, smi, blk):
         assert CL_BAND[0] < cl < CL_BAND[1], cl
         _, busy_ms, _ = profile_busy(lambda: sbd.march(P, 5), 5, "shard25",
                                      ms_step)
+        # 30 on the one-rank sharded block march, without and with the
+        # overlap split (no split at one rank: the same step)
+        t0 = time.perf_counter()
+        plain, _, _, _ = build_rae2822_block_sharded(1, case=case,
+                                                     cfl=case.cfl)
+        for tag, s in (("one-rank sharded flagship block", plain),
+                       ("one-rank sharded flagship block, overlap", sbd)):
+            graph_phase(tag, lambda X, n, graph, s=s: s.march(
+                X, n, graph=graph), P, {}, case=s)
+        log(f"[graph] phase 30 on the one-rank sharded flagship took "
+            f"{time.perf_counter() - t0:.1f} s")
     log(f"[shard25] one rank vs one device (phases 9-10 of this run): "
         f"{ms_step:.3f} vs {blk['ms_step']:.3f} ms/step, device busy "
         f"{busy_ms:.3f} vs {blk['busy_ms']:.3f} ms a step; card: {smi}")
@@ -2319,6 +2364,7 @@ def sharded_sphere_full(case, smi, cs_ms_step):
     kernel launches a step."""
     from ibx_torch.cases import build_sphere3d_block_sharded
     from ibx_torch.ops import kernels as K
+    from ibx_torch.parallel import one_rank_group
 
     _, busy_one, _ = profile_busy(lambda: case.march(case.P0, 3), 3,
                                   "shard26-one-device", cs_ms_step)
@@ -2360,6 +2406,12 @@ def sharded_sphere_full(case, smi, cs_ms_step):
                             for k, n in want.items()}, launches
         _, busy_ms, _ = profile_busy(lambda: sbd.march(P, 3), 3, "shard26",
                                      ms_step)
+        t0 = time.perf_counter()
+        graph_phase("one-rank sharded sphere channel-split",
+                    lambda X, n, graph: sbd.march(X, n, graph=graph), P,
+                    want, case=sbd)
+        log(f"[graph] phase 30 on the one-rank sharded sphere took "
+            f"{time.perf_counter() - t0:.1f} s")
         out = torch.as_tensor(sbd.collect(sbd.march(P0, 5)))
         ref = case.march(case.P0, 5).cpu()
         log("[shard26] 5 steps on one rank vs the single-device "
@@ -2438,24 +2490,37 @@ def timed_march(march, X, n, graph):
     return e0.elapsed_time(e1) / n, (time.perf_counter() - t0) / n * 1e3
 
 
-def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED):
+def call_march(call):
+    """``march(X, n, graph=...)``: ``n`` calls of ``call(X, graph=...) ->
+    (X', ...)``, each one replay where captured (a sharded step, the
+    wing's FAS cycle)."""
+    def march(X, n, graph):
+        for _ in range(n):
+            X = call(X, graph=graph)[0]
+        return X
+    return march
+
+
+def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED,
+                steps=GRAPH_STEPS):
     """Phase 30 for one march, ``march(X, n, graph=...)`` from the state
-    ``X``: GRAPH_STEPS captured steps against as many eager ones
+    ``X``: ``steps`` captured steps against as many eager ones
     (bit-equal, or within eager's own spread where that is not 0 and at
     most GRAPH_TOL), launches a step by the counters and by the kernels'
     names in a `torch.profiler` trace (the graph's equal to eager's, and
-    to ``want`` where given), ms a step and busy ms a step each way, peak
-    memory each way and the memory the captured step keeps. With ``case``
-    the march captures into a fresh `Graphs` of the case's (its own
-    graphs come back after), so that the capture and its pool are this
-    phase's; without it, call this before the march's first graphed
-    call. Appends its row to GRAPH_ROWS."""
+    to ``want`` where given), ms a step and busy ms a step each way over
+    ``timed`` steps, peak memory each way and the memory the captured
+    step keeps. With ``case`` (a case, or the sharded domain a sharded
+    march holds its graphs on) the march captures into a fresh `Graphs`
+    of the case's (its own graphs come back after), so that the capture
+    and its pool are this phase's; without it, call this before the
+    march's first graphed call. Appends its row to GRAPH_ROWS."""
     if case is not None:
         from ibx_torch.utils.graphs import Graphs
 
         keep, case._graphs = case._graphs, Graphs()
         try:
-            return graph_phase(tag, march, X, want, None, timed)
+            return graph_phase(tag, march, X, want, None, timed, steps)
         finally:
             case._graphs = keep
     from ibx_torch.ops import kernels as K
@@ -2468,11 +2533,11 @@ def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED):
     reserved0 = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    eager = march(X, GRAPH_STEPS, graph=False)
-    eager_counts = {k: v / GRAPH_STEPS for k, v in K.launches.items()}
+    eager = march(X, steps, graph=False)
+    eager_counts = {k: v / steps for k, v in K.launches.items()}
     torch.cuda.synchronize()
     eager_peak = torch.cuda.max_memory_allocated() - base
-    spread = state_err(eager, march(X, GRAPH_STEPS, graph=False))
+    spread = state_err(eager, march(X, steps, graph=False))
     # the first graphed call captures (after one eager warm-up step)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2484,8 +2549,8 @@ def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED):
     torch.cuda.empty_cache()
     held = torch.cuda.memory_reserved() - reserved0
     K.reset_launches()
-    out = march(X, GRAPH_STEPS, graph=True)
-    graph_counts = {k: v / GRAPH_STEPS for k, v in K.launches.items()}
+    out = march(X, steps, graph=True)
+    graph_counts = {k: v / steps for k, v in K.launches.items()}
     equal = state_equal(eager, out)
     err = 0.0 if equal else state_err(eager, out)
     # one step each way under the profiler: the kernels by name
@@ -2495,7 +2560,7 @@ def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED):
         lambda: march(X, 1, graph=True), 1)
     ms_e, host_e = timed_march(march, X, timed, False)
     ms_g, host_g = timed_march(march, X, timed, True)
-    row = dict(march=tag, steps=GRAPH_STEPS, bit_equal=equal, err=err,
+    row = dict(march=tag, steps=steps, bit_equal=equal, err=err,
                eager_spread=spread, launches_a_step=graph_counts,
                ms_graph=ms_g, ms_eager=ms_e, host_ms_graph=host_g,
                host_ms_eager=host_e, busy_ms_graph=busy_g,
@@ -2504,7 +2569,7 @@ def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED):
                peak_gib_eager=eager_peak / 2**30,
                peak_gib_graph=graph_peak / 2**30,
                graph_pool_gib=held / 2**30)
-    log(f"[graph] {tag}: {GRAPH_STEPS} steps graphed vs eager: "
+    log(f"[graph] {tag}: {steps} steps graphed vs eager: "
         f"{'bit-equal' if equal else f'max per-channel error {err:.3e}'} "
         f"(eager vs eager {spread:.3e}); launches a step by counter "
         f"{graph_counts} (eager {eager_counts}), by kernel name in one "
@@ -2591,6 +2656,39 @@ def padded_phase(tag, march, X, n=PADDED_STEPS):
                             busy_ms_concat=busy[False],
                             busy_ms_padded=busy[True]))
     assert equal, f"{tag}: the padded formulation changed the march"
+
+
+def bench_phase(case3d, smi):
+    """Phase 33: the bench's legs through `ibx_torch.bench` at its
+    defaults (300 steps each after a warm-up of 2 that captures): the
+    881,152-cell flagship at cfl 0.5 (built here), the same case on the
+    one-rank sharded runtime with ``overlap=True`` (NCCL) and phase 5's
+    sphere, the bench's own 3D case; prints the bench's JSON line."""
+    from ibx_torch import bench
+    from ibx_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    K.reset_launches()
+    line = bench.run("cuda", sphere=case3d, env={})
+    launches = dict(K.launches)
+    log("[bench] " + json.dumps(line))
+    # only the 3D leg launches kernels: 2 of each a channel-split step
+    # over its warm-up, timed and traced steps; the 2D legs none
+    steps = bench.WARMUP_STEPS + 300 + bench.BUSY_STEPS
+    want = dict(rk2_update=2 * steps, euler_pass_a=2 * steps,
+                euler_pass_b=2 * steps, euler_pass_b_fold=0)
+    log(f"[bench] kernel launches over the bench's legs {launches} "
+        f"(want {want})")
+    assert launches == want, (launches, want)
+    unit = line["unit"]
+    assert line["metric"] == "rae2822_euler_cell_updates_per_sec_per_chip"
+    assert np.isfinite(line["value"]) and line["value"] > 0, line
+    assert f"cells={RAE_CELLS}," in unit and "cells=5308416," in unit, unit
+    assert "sharded_1dev=" in unit and "sphere3d=" in unit, unit
+    assert "err:" not in unit, unit
+    log(f"[bench] phase 33 took {time.perf_counter() - t0:.1f} s; card: "
+        f"{smi}")
+    return line
 
 
 def pi3d_phase(dev, smi):
@@ -2699,6 +2797,9 @@ def main() -> int:
     t0 = time.perf_counter()
     gather3d_full(smi, blk3d, case3d)
     log(f"[gather3d-full] phase 16 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_phase(case3d, smi)
     # the sphere's tensors are no longer needed: free them before the 2D
     # phases, so that their peak memory is their own
     del case3d

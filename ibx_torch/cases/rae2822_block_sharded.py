@@ -10,6 +10,8 @@ kernel lies on it (nd = 2, as in the JAX package).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -20,6 +22,7 @@ from ..physics.bc import apply_flow_bc, flow_bc
 from ..physics.fluid import (physicality_guard, primitive2state,
                              state2primitive_guarded)
 from ..topology.domain import require_device
+from ..utils.graphs import graphed_call, march_loop
 from .rae2822 import build_rae2822
 
 
@@ -50,6 +53,10 @@ def build_rae2822_block_sharded(
     (P_sh, resnorm)`` on own grids ``[chunk, bs, bs, 4]``, ``P0_sh`` this
     rank's share of the initial state, ``sbd.march(P_sh, n)``. Every rank
     of the initialised process group (``n_devices`` of them) calls it.
+    ``step`` and ``march`` run the step captured in a CUDA graph on a
+    CUDA state over an ``nccl`` mesh (`utils.graphs`, the graphs held by
+    ``sbd``), eagerly on the CPU and on a staged mesh; ``graph=False`` is
+    the eager step anywhere.
 
     ``case`` reuses a prebuilt single-device case (built with the
     keywords that matter to the numerics: the step re-derives its BCs and
@@ -140,13 +147,16 @@ def build_rae2822_block_sharded(
     raw = sbd.shard_fn(sharded_step)
     extra = () if fix_loc is None else (fix_loc,)
 
-    def step(P_sh):
+    def one(P_sh):
         return raw(P_sh, active_sh, *extra)
 
-    def march(P_sh, n_steps: int):
-        for _ in range(n_steps):
-            P_sh = raw(P_sh, active_sh, *extra)[0]
-        return P_sh
+    def step(P_sh, *, graph: Optional[bool] = None):
+        return graphed_call(sbd._graphs, "step", one, P_sh, graph,
+                            sbd.mesh)
+
+    def march(P_sh, n_steps: int, *, graph: Optional[bool] = None):
+        return march_loop(sbd._graphs, "step", one, P_sh, n_steps, graph,
+                          sbd.mesh)
 
     P0_sh = sbd.distribute(case.P0)
     sbd.march = march

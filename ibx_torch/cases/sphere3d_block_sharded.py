@@ -15,6 +15,8 @@ through the cs shim on the card).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ops.block_ops import euler_rhs_grid
@@ -26,6 +28,7 @@ from ..physics.bc import apply_flow_bc, flow_bc
 from ..physics.fluid import (physicality_guard, primitive2state,
                              state2primitive_guarded)
 from ..topology.domain import require_device
+from ..utils.graphs import graphed_call, march_loop
 from .rae2822_block_sharded import _freeze_mask
 from .sphere3d import build_sphere3d
 
@@ -46,7 +49,11 @@ def build_sphere3d_block_sharded(
     on the channel-split march, ``[chunk, bs, bs, bs, 5]`` on the grid
     march), ``sbd.march(P_sh, n)``; ``sbd.distribute`` / ``sbd.collect``
     take the march's layout. Every rank of the initialised process group
-    (``n_devices`` of them) calls it.
+    (``n_devices`` of them) calls it. ``step`` and ``march`` run the step
+    captured in a CUDA graph on a CUDA state over an ``nccl`` mesh
+    (`utils.graphs`, the graphs held by ``sbd``; the kernels' launch
+    counts are added on every replay), eagerly on the CPU and on a staged
+    mesh; ``graph=False`` is the eager step anywhere.
 
     ``use_cs``: None (default) takes the channel-split march where
     `ShardedBlockDomain.cs_eligible` holds, the grid march elsewhere; True
@@ -140,13 +147,16 @@ def build_sphere3d_block_sharded(
         extra = (active_sh,)
         P0_sh = sbd.distribute(case.P0)
 
-    def step(P_sh):
+    def one(P_sh):
         return raw(P_sh, *extra)
 
-    def march(P_sh, n_steps: int):
-        for _ in range(n_steps):
-            P_sh = raw(P_sh, *extra)[0]
-        return P_sh
+    def step(P_sh, *, graph: Optional[bool] = None):
+        return graphed_call(sbd._graphs, "step", one, P_sh, graph,
+                            sbd.mesh)
+
+    def march(P_sh, n_steps: int, *, graph: Optional[bool] = None):
+        return march_loop(sbd._graphs, "step", one, P_sh, n_steps, graph,
+                          sbd.mesh)
 
     sbd.march = march
     sbd.use_cs = bool(use_cs)

@@ -16,9 +16,14 @@ It composes the port's pieces as the JAX package does:
     correction, and the prolonged correction is added to each rank's own
     blocks.
 
-The JAX package runs the coarse relaxation in a ``fori_loop`` inside one
-compiled program; here it is a Python loop of eager ops. No kernel lies on
-this path in either package (the RHS is viscous and carries ``mu_t``).
+The JAX package compiles the march, the step and the cycle (its coarse
+relaxation a ``fori_loop``); here each is one step captured in a CUDA
+graph on the card over an ``nccl`` mesh (`utils.graphs`: the coarse
+relaxation is a Python loop of ``n_coarse_iter`` iterations inside the
+captured cycle) and eager on the CPU and on a staged gloo mesh.
+`res_norms` and `res_field` stay eager: single calls, nothing to replay.
+No kernel lies on this path in either package (the RHS is viscous and
+carries ``mu_t``).
 The V-cycle is counterproductive on this case in both packages: the coarse
 wall-function level re-injects near-wall error (BASELINE.md).
 """
@@ -26,7 +31,7 @@ wall-function level re-injects near-wall error (BASELINE.md).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -47,6 +52,7 @@ from ..solve.rans import rans_rhs_grid, rans_rk2_grid
 from ..topology.blocked_bc import _collect_families
 from ..topology.blocks import build_block_tables
 from ..topology.domain import Domain, require_device
+from ..utils.graphs import graphed_call, march_loop
 from .rae2822 import RAE_DAT
 from .rae2822_rans import freestream_rt, wall_state_fn
 
@@ -58,9 +64,9 @@ class Wing3dCase:
     fluid: object
     P_inf: np.ndarray
     Rt_inf: float
-    march: Callable      # (S_sh, n) -> S_sh      (sharded RK2)
-    fas_cycle: Callable  # (S_sh,) -> (S_sh, res) (V-cycle)
-    step: Callable       # (S_sh,) -> (S_sh, res) (one RK2 step)
+    march: Callable      # (S_sh, n, graph=None) -> S_sh (sharded RK2)
+    fas_cycle: Callable  # (S_sh, graph=None) -> (S_sh, res) (V-cycle)
+    step: Callable       # (S_sh, graph=None) -> (S_sh, res) (one step)
     S0_sh: torch.Tensor  # this rank's fused [chunk, bs.., nch+1] state
     collect: Callable    # own grids -> global flat numpy (a collective)
     res_norms: Callable = None  # (S_sh,) -> (l2, max) of dt*R
@@ -254,16 +260,26 @@ def build_wing3d_rans_fas(
     raw_smooth = sbd.shard_fn(sharded_smooth)
     raw_cycle = sbd.shard_fn(sharded_fas_cycle, replicated=rep)
 
-    def march(S_sh, n: int):
-        for _ in range(n):
-            S_sh = raw_smooth(S_sh, active_sh)[0]
-        return S_sh
+    def smooth_one(S_sh):
+        return raw_smooth(S_sh, active_sh)
 
-    def fas_cycle(S_sh):
+    def cycle_one(S_sh):
         return raw_cycle(S_sh, active_sh)
 
-    def step(S_sh):
-        return raw_smooth(S_sh, active_sh)
+    # captured on a CUDA state over an nccl mesh (one graph for the step
+    # and the march, one for the cycle with its coarse loop), eager on the
+    # CPU and on a staged mesh; graph=False is eager anywhere
+    def march(S_sh, n: int, *, graph: Optional[bool] = None):
+        return march_loop(sbd._graphs, "step", smooth_one, S_sh, n, graph,
+                          mesh)
+
+    def fas_cycle(S_sh, *, graph: Optional[bool] = None):
+        return graphed_call(sbd._graphs, "cycle", cycle_one, S_sh, graph,
+                            mesh)
+
+    def step(S_sh, *, graph: Optional[bool] = None):
+        return graphed_call(sbd._graphs, "step", smooth_one, S_sh, graph,
+                            mesh)
 
     # SOLVED-cell metric mask: the march freezes only in-solid cells, but
     # the convergence functional also excludes ghost cells: the BC

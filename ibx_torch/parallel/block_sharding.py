@@ -47,6 +47,7 @@ from ..ops.kernels import STENCIL_BLOCK_SIZES
 from ..topology.blocked_bc import local_ghost_bc
 from ..topology.blocks import BlockTables, build_block_tables_raw
 from ..topology.domain import Domain
+from ..utils.graphs import Graphs
 from .sharding import DeviceMesh, _Ctx
 
 
@@ -129,6 +130,8 @@ class ShardedBlockDomain:
         assert dom.n_partitions == 1, "build from a single-partition Domain"
         msh = dom.mesh
         self.dom, self.mesh = dom, mesh
+        # the captured steps of the marches built on this domain
+        self._graphs = Graphs()
         P = int(mesh.world_size)
         self.P = P
         bs = int(msh.block_size)

@@ -1,18 +1,23 @@
-"""Launch an SPMD function on ``world_size`` local ranks.
+"""Launch an SPMD function on ``world_size`` local ranks, or make this
+process a group of one rank.
 
 `spawn` starts one process a rank with `torch.multiprocessing.spawn`,
 joins them into one process group over a ``file://`` store in a
 temporary directory (no port is opened), runs ``fn(*args)`` on every rank
 and destroys the group. Inside ``fn``, `make_device_mesh` reads the mesh
 from the group. The same code runs under ``torchrun`` with its own
-``init_process_group`` call.
+``init_process_group`` call. `one_rank_group` is the group of one rank in
+this process (a sharded case on one card, a test's rank):
 
-    from ibx_torch.parallel import spawn
+    from ibx_torch.parallel import one_rank_group, spawn
     spawn(run, 4, backend="gloo", device="cpu", args=(n_steps,))
+    with one_rank_group("nccl"):
+        sbd, step, P, case = build_rae2822_block_sharded(1)
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import tempfile
@@ -25,6 +30,38 @@ import torch.multiprocessing as mp
 from ..topology.domain import require_device
 
 
+def _free_group() -> None:
+    # A CUDA graph that captured NCCL kernels holds a reference on their
+    # communicator, and destroying the communicator waits for every such
+    # reference: free the graphs that only reference cycles still hold (a
+    # sharded case's captured steps) before the group.
+    gc.collect()
+    dist.destroy_process_group()
+    # The group's C++ object (its gloo connections and threads) lives
+    # while any Python object holds it, and a mesh held in a reference
+    # cycle (a case's closures over its `ShardedBlockDomain`) keeps it
+    # until the cyclic collector runs, at the latest during interpreter
+    # shutdown, where tearing it down aborts the process ("terminate
+    # called without an active exception"). Free it here.
+    gc.collect()
+
+
+@contextlib.contextmanager
+def one_rank_group(backend: str = "gloo"):
+    """A process group of one rank, this process, over a ``file://``
+    store in a temporary directory; destroyed (and its threads freed) on
+    exit. ``nccl`` for a mesh on the card, ``gloo`` for the CPU (or a
+    staged mesh on the card)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(tmp, "store"),
+            world_size=1, rank=0)
+        try:
+            yield
+        finally:
+            _free_group()
+
+
 def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
                init_method: str, threads: int, args: Sequence) -> None:
     torch.set_num_threads(threads)
@@ -35,14 +72,7 @@ def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
         # no rank tears its connections down while a peer still sends
         dist.barrier()
     finally:
-        dist.destroy_process_group()
-        # The group's C++ object (its gloo connections and threads) lives
-        # while any Python object holds it, and a mesh held in a reference
-        # cycle (a case's closures over its `ShardedBlockDomain`) keeps it
-        # until the cyclic collector runs, at the latest during interpreter
-        # shutdown, where tearing it down aborts the rank ("terminate
-        # called without an active exception"). Free it here.
-        gc.collect()
+        _free_group()
 
 
 def spawn(fn: Callable, world_size: int, *, backend: Optional[str] = None,

@@ -46,6 +46,7 @@ import torch.distributed as dist
 from ..ops.operators import Partition
 from ..ops.stencil import take_rows
 from ..topology.domain import Boundary, Domain, require_device
+from ..utils.graphs import Graphs
 
 
 class _Pending:
@@ -191,6 +192,8 @@ class ShardedDomain:
             raise ValueError(f"mesh has {mesh.world_size} ranks, domain has "
                              f"{P} partitions")
         self.dom, self.mesh = dom, mesh
+        # the captured steps of the marches built on this domain
+        self._graphs = Graphs()
         self.n_partitions = P
         self.n_own = dom.n_own
         self.ncells = dom.ncells

@@ -15,8 +15,17 @@ counts of the captured step are recorded and added on every replay, so
 `Graphs` holds one captured step per march variant of a case, all in one
 memory pool (one step's intermediates, not one a variant), and
 `march_loop` is every case's ``march``: captured on a CUDA state unless
-``graph=False``, the eager loop on the CPU. Nothing falls back: a step
-that cannot be captured raises.
+``graph=False``, the eager loop on the CPU. `graphed_call` is a step
+called one at a time (a sharded case's ``step``, the wing's FAS cycle):
+one replay a call, returning the step's ``res`` too.
+
+A sharded march passes its `DeviceMesh`: over ``nccl`` its collectives
+and its halo exchange are captured with the step (the exchange runs on
+the process group's stream, a branch of the graph that the interior pass
+overlaps); a staged mesh (``gloo`` with CUDA tensors) moves every
+exchange through host tensors, which no graph can hold, so it runs eager
+as the CPU does, and ``graph=True`` there raises. Nothing falls back: a
+step that cannot be captured raises.
 """
 
 from __future__ import annotations
@@ -32,10 +41,27 @@ def _as_tuple(X) -> Tuple[torch.Tensor, ...]:
     return tuple(X) if isinstance(X, (tuple, list)) else (X,)
 
 
-def use_graph(graph: Optional[bool], X) -> bool:
+def _clone(r):
+    if r is None:
+        return None
+    if isinstance(r, (tuple, list)):
+        return tuple(_clone(x) for x in r)
+    return r.clone()
+
+
+def use_graph(graph: Optional[bool], X, mesh=None) -> bool:
     """Whether a march of the state ``X`` runs captured: ``graph=None``
     decides by the state's device (the card: yes; the CPU: no), False is
-    the eager loop on any device, True needs a CUDA state."""
+    the eager loop on any device, True needs a CUDA state. ``mesh`` (a
+    sharded march's `DeviceMesh`): on a staged mesh None is the eager
+    loop and True raises."""
+    if mesh is not None and mesh.staged:
+        if graph:
+            raise ValueError(
+                "graph=True on a staged mesh (gloo with CUDA tensors): its "
+                "exchanges go through host tensors, which a CUDA graph "
+                "cannot capture (use nccl, one rank a card)")
+        return False
     on_card = _as_tuple(X)[0].device.type == "cuda"
     if graph is None:
         return on_card
@@ -93,6 +119,11 @@ class GraphedStep:
                 kernels.launches[k] += v
         return self._arg(tuple(s.clone() for s in self.static))
 
+    def call(self, X):
+        """One replay from ``X``: ``(X', res)`` as the step returns them
+        (new tensors)."""
+        return self.run(X, 1), _clone(self.res)
+
 
 class Graphs:
     """A case's captured steps, one a march variant, in one memory pool."""
@@ -113,11 +144,20 @@ class Graphs:
 
 
 def march_loop(graphs: Graphs, key: Hashable, step: Callable, X, n: int,
-               graph: Optional[bool] = None):
+               graph: Optional[bool] = None, mesh=None):
     """``n`` steps of ``step`` (``X -> (X', res)``) from ``X``: replays of
     the captured step where `use_graph` says so, else the eager loop."""
-    if use_graph(graph, X) and n > 0:
+    if use_graph(graph, X, mesh) and n > 0:
         return graphs.get(key, step, X).run(X, n)
     for _ in range(n):
         X, _ = step(X)
     return X
+
+
+def graphed_call(graphs: Graphs, key: Hashable, step: Callable, X,
+                 graph: Optional[bool] = None, mesh=None):
+    """One step ``X -> (X', res)``: one replay of the captured step where
+    `use_graph` says so, else the step itself."""
+    if use_graph(graph, X, mesh):
+        return graphs.get(key, step, X).call(X)
+    return step(X)

@@ -91,32 +91,20 @@ def main() -> int:
 
 def sharded_counts(rae, sphere) -> None:
     """One step of each sharded block march on a one-rank gloo group."""
-    import os
-    import tempfile
-
-    import torch.distributed as dist
-
     from ibx_torch.cases import (build_rae2822_block_sharded,
                                  build_sphere3d_block_sharded)
+    from ibx_torch.parallel import one_rank_group
 
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            "gloo", init_method="file://" + os.path.join(tmp, "store"),
-            world_size=1, rank=0)
-        try:
-            for label, build, case in (
-                    ("RAE2822 block march", build_rae2822_block_sharded,
-                     rae),
-                    ("sphere channel-split march",
-                     build_sphere3d_block_sharded, sphere)):
-                _, step, P, _ = build(1, case=case)
-                with Count() as c:
-                    step(P)
-                print(f"{label}, sharded on one rank: {c.n} dispatched ops "
-                      f"a step, {c.views} views, {c.n - c.views} launches")
-        finally:
-            dist.destroy_process_group()
-
+    with one_rank_group("gloo"):
+        for label, build, case in (
+                ("RAE2822 block march", build_rae2822_block_sharded, rae),
+                ("sphere channel-split march",
+                 build_sphere3d_block_sharded, sphere)):
+            _, step, P, _ = build(1, case=case)
+            with Count() as c:
+                step(P)
+            print(f"{label}, sharded on one rank: {c.n} dispatched ops "
+                  f"a step, {c.views} views, {c.n - c.views} launches")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -80,6 +80,8 @@ def test_scan_covers_the_2d_modules():
     want |= {"ibx_torch/cases/wing3d_rans_fas.py",
              "ibx_torch/geometry/cutcell.py", "ibx_torch/io/vtk.py",
              "ibx_torch/utils/pytree.py"}
+    # the port's bench
+    want |= {"ibx_torch/bench.py"}
     assert want <= names, want - names
     for f in _port_files():
         tree = ast.parse(f.read_text(), filename=str(f))

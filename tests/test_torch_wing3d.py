@@ -19,7 +19,7 @@ from ibx.topology.blocked_bc import _collect_families as jx_families
 from ibx.topology.blocks import build_block_tables as jx_block_tables
 
 from ibx_torch.cases import build_wing3d_rans_fas
-from ibx_torch.parallel import DeviceMesh, ShardedBlockDomain
+from ibx_torch.parallel import DeviceMesh, ShardedBlockDomain, one_rank_group
 from ibx_torch.solve.multigrid_domain import multigrid
 from ibx_torch.topology.blocked_bc import _collect_families
 from ibx_torch.topology.blocks import (build_block_tables,
@@ -28,7 +28,7 @@ from ibx_torch.topology.blocks import (build_block_tables,
 from test_torch_block_sharding import _check_raw
 from test_torch_kernels import ibx_fields
 from test_torch_stencil import assert_stencil_equal
-from test_torch_wing3d_ranks import WING, one_rank_group
+from test_torch_wing3d_ranks import WING
 
 torch.set_num_threads(2)
 N_STEPS = 2
@@ -47,13 +47,12 @@ def jx():
 
 
 @pytest.fixture(scope="module")
-def pt(tmp_path_factory):
+def pt():
     """The port's wing on one gloo rank of this process, on the CPU: its
     domain and freestream (the case itself, which holds the process
     group, is freed with the group), its initial state, ``dt*R`` there
     and 2 steps."""
-    store = tmp_path_factory.mktemp("wing_group") / "store"
-    with one_rank_group(store):
+    with one_rank_group("gloo"):
         case = build_wing3d_rans_fas(1, device="cpu", **WING)
         S0 = case.collect(case.S0_sh)
         rf = case.collect(case.res_field(case.S0_sh))

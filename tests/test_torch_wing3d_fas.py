@@ -13,10 +13,9 @@ from ibx.cases.wing3d_rans_fas import (
     build_wing3d_rans_fas as jx_build_wing)
 
 from ibx_torch.cases import build_wing3d_rans_fas
-from ibx_torch.parallel import spawn
+from ibx_torch.parallel import one_rank_group, spawn
 
-from test_torch_wing3d_ranks import (WING, one_rank_group, wing_outputs,
-                                     wing_rank)
+from test_torch_wing3d_ranks import WING, wing_outputs, wing_rank
 
 torch.set_num_threads(2)
 
@@ -33,10 +32,9 @@ def jx():
 
 
 @pytest.fixture(scope="module")
-def one(tmp_path_factory):
+def one():
     """The port's wing on one gloo rank of this process."""
-    store = tmp_path_factory.mktemp("wing_one") / "store"
-    with one_rank_group(store):
+    with one_rank_group("gloo"):
         return wing_outputs(build_wing3d_rans_fas(1, device="cpu", **WING))
 
 

@@ -1,16 +1,12 @@
 """The rank function of the sharded wing's parity tests
-(`test_torch_wing3d_fas.py`), and the one-rank process group the
-single-rank wing tests build their case in.
+(`test_torch_wing3d_fas.py`); the single-rank wing tests build their case
+in the package's `ibx_torch.parallel.one_rank_group`.
 
 Every spawned rank imports the module its function lives in; this one
 imports torch and `ibx_torch` only (see `test_torch_sharded_ranks.py`).
 The JAX side of each comparison stays in the test files."""
 
-import contextlib
-import gc
-
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from ibx_torch.cases import build_wing3d_rans_fas
@@ -42,16 +38,3 @@ def wing_rank(out_dir):
     if dist.get_rank() == 0:
         np.savez(f"{out_dir}/out.npz", **out)
 
-
-@contextlib.contextmanager
-def one_rank_group(store_path):
-    """A one-rank gloo process group in this process, torn down (and its
-    gloo threads freed) on exit."""
-    torch.set_num_threads(2)
-    dist.init_process_group("gloo", init_method=f"file://{store_path}",
-                            world_size=1, rank=0)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
-        gc.collect()
