@@ -8,8 +8,11 @@ Every `case.march` on the card runs the step captured in a CUDA graph and
 replayed (`ibx_torch.utils.graphs`, the default on a CUDA state; the
 counterpart of the JAX package's `jit` over `fori_loop`), and so do the
 sharded marches and steps and the wing's march and FAS cycle on one NCCL
-rank (a gloo rank stays eager); phase 30 holds each captured march
-against its eager loop (``graph=False``). Phases, in order; any failure
+rank (a gloo rank stays eager), `FasEuler.cycle` / `smooth_only` and
+`point_implicit_step` (a head, a body replayed while the stop rule read
+on the host holds, a tail: the counterpart of `jit` over `while_loop`);
+phase 30 holds each captured march and call against its eager loop
+(``graph=False``). Phases, in order; any failure
 ends the run with a non-zero exit:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels of ibx_torch/csrc with nvcc;
@@ -111,18 +114,23 @@ ends the run with a non-zero exit:
      after each call; fas3 must reach 0.3x its peak, in at most 1/1.5 of
      smoothing's calls where smoothing reaches it too, and end under a
      third of smoothing's final ratio (tests/test_fas_verdict.py's
-     margins), with the card's seconds a call;
+     margins), with the card's seconds a call captured (eager beside,
+     from the phase-30 rows of both calls, run first);
  23. the slice at full width (881,152 cells): FAS-Euler on the gather
      march at M 0.4 (the 3-level hierarchy with each level's cells and
      build s; 5 cycles against 5 smoothing calls of n_iter=10:
      tests/test_fas_euler.py's residual and physical-range checks; ms a
-     call, peak memory, the card's busy time for one cycle); then 2
+     call captured with eager beside, peak memory, the card's busy time
+     for one cycle, the eager stop rule's host read and the captured
+     call's idle card a read-and-replay turn; the phase-30 rows of both
+     calls run first); then 2
      `point_implicit_step`s (cfl 5, relax 0.8, the freeze mask, the
      frozen limiter: the exact one's Jacobian leaves float32 beside the
      wall there, its non-finite rows are printed) on the block march from
      the oracle's state, each with a linear ratio under 1
      and a finite state, the solved-cell residual under 3x its start
-     (tests/test_point_implicit_euler.py), ms a step; the four kernel
+     (tests/test_point_implicit_euler.py), ms a step captured (eager
+     beside, from the step's phase-30 row, run first); the four kernel
      counters stay 0 over phases 21-23;
  24. the multi-device runtime on four ranks (after phase 23): four gloo
      ranks spawned on the one card (NCCL refuses two ranks on one device),
@@ -186,13 +194,23 @@ ends the run with a non-zero exit:
      channel-split 2/2/2, sharded too, grid with the fold pass A 2, pass
      B 1, fold 1; every 2D, RANS and wing march 0); ms a step and the
      card's busy ms a step each way; peak memory each way and the memory
-     the captured step keeps;
+     the captured step keeps; and the solver calls (in phases 22,
+     23 and 31, before their first captured call: `FasEuler.cycle` and
+     `smooth_only` on the verdict case and the flagship, the
+     point-implicit step at nd = 2 on the flagship and at nd = 3 on the
+     bs=8 sphere): 2 captured calls against 2 eager ones, bit-equal in
+     state and ratio, the same iterations on every level, launches a call
+     (passes A and B once at nd = 3, 0 elsewhere) by counter and by name
+     in a trace of the first call, ms a call (events over the calls after
+     the first; 3 more calls each way on the FAS rows) and busy ms, the
+     capture's seconds and what it keeps;
  31. the point-implicit step at nd = 3 (after phase 16): the bs=8 sphere
      (wall_h=0.125), ``g`` at Q_n and its JVP with the frozen limiter card
-     vs CPU (1e-4), then one step on the card (cfl 5, relax 0.8, the
-     freeze mask): finite, linear ratio under 1, its seconds; the
-     explicit bound at Q_n launches pass A and pass B once, the
-     differentiated residual no kernel;
+     vs CPU (1e-4), the step's phase-30 row, then one step on the card
+     captured (cfl 5, relax 0.8, the freeze mask): finite, linear ratio
+     under 1, its seconds (eager beside); the explicit bound at Q_n
+     launches pass A and pass B once, the differentiated residual no
+     kernel;
  32. the padded formulation of `face_accumulate` against concat
      (`block_ops._PADDED_FACES`), eager: bit-equal over 3 steps and the
      card's busy ms a step of each, traced in turns, on the flagship's
@@ -1227,10 +1245,11 @@ def calls_to(curve, frac):
 
 def solver_phases(root, dev, smi):
     """Phases 21-23: solver acceleration (multigrid transfers, FAS and
-    FAS-Euler, the point-implicit solver). No kernel lies on it (FAS-Euler
-    runs on the gather path, the point-implicit step on the nd = 2 block
-    path, as in the JAX package), so it adds no row to the kernels line;
-    the four counters are asserted to stay 0."""
+    FAS-Euler, the point-implicit solver), captured by default, with
+    phase 30's rows of the verdict's and the flagship's calls. No kernel
+    lies on it (FAS-Euler runs on the gather path, the point-implicit step
+    on the nd = 2 block path, as in the JAX package), so it adds no row to
+    the kernels line; the four counters are asserted to stay 0."""
     from ibx_torch.cases import build_rae2822
     from ibx_torch.ops import kernels as K
     from ibx_torch.ops.block_ops import euler_rhs_block
@@ -1348,6 +1367,12 @@ def solver_phases(root, dev, smi):
         f"{t_fe:.1f} s; {int(ghost.sum())} ghost cells left out of the "
         f"functional")
     Q0 = fe.init_state(case.P0)
+    # phase 30 on the verdict's two calls (captured here, replayed below)
+    vrows = {arm: solver_graph_phase(
+        f"verdict {key} ({dom.ncells} cells, n_iter={VERDICT_ITERS})",
+        fas_call(fe, key, n_iter=VERDICT_ITERS, rtol=1e-6), Q0, want={},
+        timed=1, trace_eager=False)
+        for arm, key in (("smooth", "smooth"), ("fas3", "cycle"))}
     curves, secs = {}, {}
     for arm, fn in (("smooth", fe.smooth_only), ("fas3", fe.cycle)):
         Q, curve, t_arm = Q0, [res_l2(Q0)], 0.0
@@ -1361,7 +1386,9 @@ def solver_phases(root, dev, smi):
         curves[arm], secs[arm] = np.asarray(curve), t_arm / VERDICT_CALLS
         pk = int(np.argmax(curve))
         log(f"[verdict] {arm}: {VERDICT_CALLS} calls of n_iter="
-            f"{VERDICT_ITERS}, {secs[arm]:.3f} s a call on the card; peak "
+            f"{VERDICT_ITERS}, {secs[arm]:.4f} s a call on the card "
+            f"captured (host clock, synchronized; eager "
+            f"{vrows[arm]['host_ms_eager'] / 1e3:.4f} s, phase 30); peak "
             f"{curve[pk]:.6e} after call {pk}, 0.3x peak at call "
             f"{calls_to(curve, 0.3)}, final {curve[-1] / curve[pk]:.4f} of "
             f"peak; functional after each call: "
@@ -1396,7 +1423,8 @@ def solver_phases(root, dev, smi):
     assert fe.domains[0].ncells == RAE_CELLS
     Q0 = fe.init_state(case.P0)
     kw = dict(n_iter=FAS_FULL_ITERS, rtol=1e-6)
-    fe.cycle(Q0, n_iter=1)          # first partition tables at first use
+    # first partition tables at first use
+    fe.cycle(Q0, n_iter=1, graph=False)
     torch.cuda.synchronize()
     log(f"[fas-full] build_rae2822(use_blocks=False, mach=0.4, "
         f"{RAE_FLAGSHIP}): {case.dom.ncells} cells, build "
@@ -1405,6 +1433,11 @@ def solver_phases(root, dev, smi):
         f"its partition tables): " + ", ".join(
             f"{d.ncells} {sum(d.build_timings.values()):.1f}"
             for d in fe.domains))
+    # phase 30 on the two calls (captured here, replayed below)
+    frows = {arm: solver_graph_phase(
+        f"flagship FAS {key} ({RAE_CELLS} cells, M 0.4, n_iter="
+        f"{FAS_FULL_ITERS})", fas_call(fe, key, **kw), Q0, want={},
+        timed=3) for arm, key in (("fas", "cycle"), ("smooth", "smooth"))}
     ms = {}
     Qc = Qs = Q0
     e0 = torch.cuda.Event(enable_timing=True)
@@ -1431,9 +1464,11 @@ def solver_phases(root, dev, smi):
     finite = bool(torch.isfinite(Qc).all() and torch.isfinite(Qs).all())
     peak = torch.cuda.max_memory_allocated() - base
     p_act, T_act = Pc[act, 0], Pc[act, 1]
-    log(f"[fas-full] {FAS_FULL_CALLS} calls of n_iter={FAS_FULL_ITERS}: "
-        f"cycle {ms['fas'][0]:.1f} ms (host clock {ms['fas'][1]:.1f}), "
-        f"smoothing {ms['smooth'][0]:.1f} ms (host {ms['smooth'][1]:.1f}) a "
+    log(f"[fas-full] {FAS_FULL_CALLS} calls of n_iter={FAS_FULL_ITERS}, "
+        f"captured: cycle {ms['fas'][0]:.1f} ms (host clock "
+        f"{ms['fas'][1]:.1f}; eager {frows['fas']['ms_eager']:.1f}), "
+        f"smoothing {ms['smooth'][0]:.1f} ms (host {ms['smooth'][1]:.1f}; "
+        f"eager {frows['smooth']['ms_eager']:.1f}) a "
         f"call; fine residual |r| after: cycles {nc:.6e}, smoothing "
         f"{ns:.6e}; finite {finite}; active cells p {float(p_act.min()):.1f}"
         f" to {float(p_act.max()):.1f}, T min {float(T_act.min()):.2f}; "
@@ -1445,8 +1480,8 @@ def solver_phases(root, dev, smi):
                                     "fas-full", ms["fas"][0])
 
     # the host sync of the stop rule (one read of the residual norm an
-    # iteration): a smoothing call against the same iterations, norms
-    # included, with no read, in turns
+    # iteration): an eager smoothing call against the same iterations,
+    # norms included, with no read, in turns
     def no_read(Q):
         r0, _ = fe._f(0, Q)
         source = torch.zeros_like(r0)
@@ -1460,8 +1495,8 @@ def solver_phases(root, dev, smi):
 
     t_sync = {"read": [], "no read": []}
     for label in ("read", "no read", "no read", "read") * 3:
-        fn = (lambda Q: fe.smooth_only(Q, **kw)) if label == "read" \
-            else no_read
+        fn = (lambda Q: fe.smooth_only(Q, graph=False, **kw)) \
+            if label == "read" else no_read
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn(Qs)
@@ -1475,6 +1510,13 @@ def solver_phases(root, dev, smi):
             f"{t:.1f}" for t in t_sync["read"]) + "; without " + ", ".join(
             f"{t:.1f}" for t in t_sync["no read"])
         + f": medians differ by {d_ms:.3f} ms an iteration")
+    sm = frows["smooth"]
+    turn_ms = (sm["ms_graph"] - sm["busy_ms_graph"]) / \
+        sm["iterations_graph"][0][0]
+    log(f"[fas-full] captured smoothing call: {sm['ms_graph']:.3f} ms "
+        f"against {sm['busy_ms_graph']:.3f} ms busy over "
+        f"{sm['iterations_graph'][0][0]} read-and-replay turns: "
+        f"{turn_ms:.3f} ms of idle card a turn")
     assert dict(K.launches) == zero, K.launches
     del case, fe, Q, Q0, Qc, Qs, Pc
 
@@ -1508,6 +1550,18 @@ def solver_phases(root, dev, smi):
     n_bad = int((~torch.isfinite(Dinv.reshape(Dinv.shape[0], -1))).any(
         dim=1).sum())
     del g, Qn, Dinv
+    # phase 30 on the step (captured here, replayed below): one generator
+    # each way, reseeded 0 before each run
+    gens = (torch.Generator(device=dev), torch.Generator(device=dev))
+
+    def reseed():
+        for g_ in gens:
+            g_.manual_seed(0)
+    prow = solver_graph_phase(
+        f"flagship point-implicit step nd=2 ({RAE_CELLS} cells, frozen "
+        f"limiter)", pi_call(case, gens), P, want={}, reset=reseed,
+        trace_eager=False)
+    gen = gens[1]
     gen.manual_seed(0)
     ratios, ms_steps = [], []
     for _ in range(PI_STEPS):
@@ -1530,8 +1584,9 @@ def solver_phases(root, dev, smi):
         f"{RAE_ORACLE}: linear ratios "
         + ", ".join(f"{r:.4f}" for r in ratios)
         + f"; solved-cell |R| {r0:.6e} -> {r1:.6e} ({r1 / r0:.4f}x); "
-        + "ms a step (host clock, synchronized) "
+        + "ms a step captured (host clock, synchronized) "
         + ", ".join(f"{m:.1f}" for m in ms_steps)
+        + f" (eager {prow['host_ms_eager']:.1f}, phase 30)"
         + f"; peak memory {peak / 2**30:.3f} GiB above what was held; "
         f"card: {smi}")
     assert all(r < 1.0 for r in ratios), ratios
@@ -1539,7 +1594,7 @@ def solver_phases(root, dev, smi):
     assert dict(K.launches) == zero, K.launches
     return dict(ms_cycle=ms["fas"][0], ms_smooth=ms["smooth"][0],
                 busy_cycle=busy_ms, activities_cycle=acts, sync_ms=d_ms,
-                verdict_s_call=secs, ms_pi_step=ms_steps)
+                turn_ms=turn_ms, verdict_s_call=secs, ms_pi_step=ms_steps)
 
 
 def interface_sides(bt):
@@ -2444,12 +2499,12 @@ def kernel_name_counts(events):
 
 
 def device_trace(fn, n_steps):
-    """One `torch.profiler` trace of ``fn`` (``n_steps`` steps): (device
-    busy ms a step, device activities a step, launches a step of each
-    kernel by name)."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    """One `torch.profiler` trace of the card's activities (not the host's
+    operators: an eager point-implicit step issues some 10^5 of them) over
+    ``fn`` (``n_steps`` steps): (device busy ms a step, device activities
+    a step, launches a step of each kernel by name)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.events()
@@ -2595,6 +2650,157 @@ def graph_phase(tag, march, X, want=None, case=None, timed=GRAPH_TIMED,
     return row
 
 
+def _solver_calls(call, X, n, graph, reset, trace):
+    """``n`` calls of ``call(Y, graph=graph) -> (Y', ratio, iterations)``
+    from ``X`` after ``reset()``, each from the last: (the outputs, each
+    call's iterations per level, the first call's `device_trace` where
+    ``trace`` (else Nones), ms a call by CUDA events and by the host clock
+    over the untraced calls)."""
+    reset()
+    outs, its, ms, host = [], [], [], []
+    traced = (None, None, None)
+    Y = X
+    for i in range(n):
+        if i == 0 and trace:
+            box = []
+            traced = device_trace(lambda: box.append(call(Y, graph=graph)),
+                                  1)
+            out = box[0]
+        else:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = call(Y, graph=graph)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            host.append((time.perf_counter() - t0) * 1e3)
+        its.append(out[-1])
+        outs.append(out[:2])
+        Y = out[0]
+    return outs, its, traced, float(np.mean(ms)), float(np.mean(host))
+
+
+def solver_graph_phase(tag, call, X, want=None, steps=2, timed=0,
+                       reset=lambda: None, trace_eager=True):
+    """Phase 30 for a solver call ``call(X, graph=...) -> (X', ratio,
+    iterations)`` (a FAS cycle or smoothing call, a point-implicit step;
+    ``iterations`` the last call's per level): ``steps`` captured calls
+    against as many eager ones from ``X`` (each from the last, after
+    ``reset()``), the states and ratios bit-equal and the iterations
+    equal on every level and call; launches a call by the counters and by
+    the kernels' names in a `torch.profiler` trace of the first captured
+    call (and of the first eager one where ``trace_eager``: tracing an
+    eager point-implicit step takes minutes), equal, and to ``want`` where
+    given; ms a call by CUDA events over the untraced calls (``steps +
+    timed`` each way; the host clock beside) and the card's busy ms in
+    the traces; the capture's
+    seconds (the first captured call: warm-up, capture and one replay)
+    and the memory it keeps (its pool and buffers). Call it before the
+    loop's first captured call. Appends its row to GRAPH_ROWS."""
+    from ibx_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    n = steps + timed
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    eager, its_e, (busy_e, acts_e, named_e), ms_e, host_e = _solver_calls(
+        call, X, n, False, reset, trace_eager)
+    eager_counts = {k: v / n for k, v in K.launches.items()}
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    call(X, graph=None)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved0
+    K.reset_launches()
+    out, its_g, (busy_g, acts_g, named_g), ms_g, host_g = _solver_calls(
+        call, X, n, None, reset, True)
+    graph_counts = {k: v / n for k, v in K.launches.items()}
+    equal = all(torch.equal(a, b) for pe, pg in zip(eager[:steps],
+                                                    out[:steps])
+                for a, b in zip(pe, pg))
+    err = 0.0 if equal else max(state_err(pe[0], pg[0]) for pe, pg in zip(
+        eager[:steps], out[:steps]))
+    row = dict(march=tag, steps=steps, bit_equal=equal, err=err,
+               iterations_graph=its_g, iterations_eager=its_e,
+               launches_a_step=graph_counts, ms_graph=ms_g, ms_eager=ms_e,
+               host_ms_graph=host_g, host_ms_eager=host_e,
+               busy_ms_graph=busy_g, busy_ms_eager=busy_e,
+               activities_graph=acts_g, activities_eager=acts_e,
+               capture_s=capture_s, peak_gib_eager=eager_peak / 2**30,
+               peak_gib_graph=graph_peak / 2**30,
+               graph_pool_gib=held / 2**30)
+    busy_eager = ("not measured" if busy_e is None else
+                  f"{busy_e:.3f} ms in {acts_e:.0f} activities")
+    log(f"[graph] {tag}: {steps} calls graphed vs eager: "
+        f"{'bit-equal' if equal else f'max per-channel error {err:.3e}'}; "
+        f"iterations a call per level {its_g} (eager {its_e}); launches a "
+        f"call by counter {graph_counts} (eager {eager_counts}), by kernel "
+        f"name in one call {named_g} (eager {named_e}); ms a call "
+        f"{ms_g:.3f} graphed vs {ms_e:.3f} eager (CUDA events over "
+        f"{n - 1} graphed, {n - int(trace_eager)} eager; host clock "
+        f"{host_g:.3f} vs {host_e:.3f}); device busy a call {busy_g:.3f} ms "
+        f"in {acts_g:.0f} activities graphed, eager {busy_eager}; warm-up, "
+        f"capture and one replay "
+        f"{capture_s:.2f} s; peak memory {graph_peak / 2**30:.3f} GiB over "
+        f"them vs {eager_peak / 2**30:.3f} over the eager calls (above "
+        f"what was held), kept by the capture (its pool and buffers) "
+        f"{held / 2**30:.3f} GiB; {time.perf_counter() - t_phase:.1f} s")
+    GRAPH_ROWS.append(row)
+    assert equal, (tag, err)
+    assert its_g == its_e, (tag, its_g, its_e)
+    assert graph_counts == eager_counts == named_g, (
+        tag, graph_counts, eager_counts, named_g)
+    assert named_e is None or named_e == named_g, (tag, named_e, named_g)
+    if want is not None:
+        assert graph_counts == {k: float(want.get(k, 0))
+                                for k in K.launches}, (tag, graph_counts)
+    return row
+
+
+def fas_call(fe, arm, **kw):
+    """``call(Q, graph) -> (Q', ratio, iterations)`` of `FasEuler.cycle`
+    (``arm`` "cycle") or `smooth_only` ("smooth")."""
+    fn = fe.cycle if arm == "cycle" else fe.smooth_only
+
+    def call(Q, graph):
+        Q, ratio = fn(Q, graph=graph, **kw)
+        return Q, ratio, fe._graphs.last.iterations
+    return call
+
+
+def pi_call(case, gens, **kw):
+    """``call(P, graph) -> (P', ratio, iterations)`` of
+    `point_implicit_step` on ``case``'s block march, the frozen limiter and
+    the freeze mask, the probes drawn from ``gens[graph is None]`` (one
+    generator each way, both reseeded 0 by the phase's ``reset``)."""
+    from ibx_torch.solve import point_implicit_step
+
+    active = case.active3.reshape(-1)
+
+    def call(P, graph):
+        P, ratio = point_implicit_step(
+            case.bt, case.fluid, P, case.apply_bcs, cfl=PI_CFL,
+            relax=PI_RELAX, active=active, freeze_limiter=True,
+            generator=gens[graph is None], graph=graph, **kw)
+        return P, ratio, case.bt._graphs.last.iterations
+    return call
+
+
 def sphere_graph_phases(case, smi):
     """Phases 30 and 32 on phase 5's sphere (5,308,416 cells): the
     channel-split march and the grid march with and without the fold and
@@ -2694,9 +2900,10 @@ def bench_phase(case3d, smi):
 def pi3d_phase(dev, smi):
     """Phase 31: the point-implicit step at nd = 3 on the bs=8 sphere
     (wall_h=0.125, 147,456 cells) from the flow of PI3D_STEPS steps from
-    the freestream: ``g`` at Q_n and its JVP card vs CPU (PI_TOL), then
-    one frozen-limiter step on the card (cfl 5, relax 0.8, the freeze
-    mask): finite, linear ratio under 1, its seconds; the explicit bound
+    the freestream: ``g`` at Q_n and its JVP card vs CPU (PI_TOL), the
+    step's phase-30 row (captured against eager), then one frozen-limiter
+    step on the card, captured (cfl 5, relax 0.8, the freeze mask):
+    finite, linear ratio under 1, its seconds; the explicit bound
     at Q_n launches pass A and pass B once (the kernel route), the
     differentiated residual none. Not from the perturbed state of phase
     3: its pressure is uniform along z, where the JST sensor's 0/0 and
@@ -2735,7 +2942,19 @@ def pi3d_phase(dev, smi):
     check("g at Q_n (per channel)", chan_err(Ac.fx, Ag.fx.cpu()), PI_TOL)
     check("JVP of g (per channel)", chan_err(Ac(v), Jg.cpu()), PI_TOL)
     del cc, cfn, Ac, gfn, Ag
-    gen = torch.Generator(device=dev)
+    # phase 30 on the step (captured here, replayed below): passes A and B
+    # once a step (the explicit bound at Q_n)
+    gens = (torch.Generator(device=dev), torch.Generator(device=dev))
+
+    def reseed():
+        for g_ in gens:
+            g_.manual_seed(0)
+    prow = solver_graph_phase(
+        f"sphere bs=8 point-implicit step nd=3 ({cg.dom.ncells} cells, "
+        f"frozen limiter)", pi_call(cg, gens), P,
+        want=dict(euler_pass_a=1, euler_pass_b=1), reset=reseed,
+        trace_eager=False)
+    gen = gens[1]
     gen.manual_seed(0)
     K.reset_launches()
     torch.cuda.synchronize()
@@ -2749,7 +2968,9 @@ def pi3d_phase(dev, smi):
     log(f"[pi3d] point_implicit_step(cfl={PI_CFL}, relax={PI_RELAX}, "
         f"freeze_limiter=True, 8 Hutchinson samples, 8 Krylov iterations):"
         f" linear ratio {float(ratio):.4f}, finite {finite}, {secs:.3f} s "
-        f"(host clock, synchronized), launches {dict(K.launches)}; phase "
+        f"captured (host clock, synchronized; eager "
+        f"{prow['host_ms_eager'] / 1e3:.3f} s, phase 30), launches "
+        f"{dict(K.launches)}; phase "
         f"31 took {time.perf_counter() - t_phase:.1f} s; card: {smi}")
     assert finite and float(ratio) < 1.0, float(ratio)
     return dict(ratio=float(ratio), seconds=secs)

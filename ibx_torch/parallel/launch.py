@@ -25,6 +25,12 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+# Imported before any group exists, on purpose: its functions take
+# ``group=group.WORLD`` as a default, bound when the module is first
+# imported. torch imports it lazily with `torch._dynamo`, which entering
+# any `TorchDispatchMode` (or `torch.compile`) loads; loaded while a group
+# lives, it would hold that group, and its gloo threads, until exit.
+import torch.distributed.nn.functional  # noqa: F401
 import torch.multiprocessing as mp
 
 from ..topology.domain import require_device

@@ -8,6 +8,12 @@ local-dt explicit update ``Q += dt * R(Q)``, coarse levels relax the
 tau-corrected problem on the same physics (reference pattern:
 ``src/solver.jl`` + ``README.md:392-395``). Every op is a torch op on the
 fine domain's device; no kernel of `ibx_torch.ops.kernels` lies on it.
+
+On a CUDA state `FasEuler.cycle` and `smooth_only` run the cycle's pieces
+captured in CUDA graphs (`fas.FasCycle`; the counterpart of the JAX
+package's ``jax.jit`` over them), one capture an arm, ``n_iter`` and
+``rtol``, kept on the solver in one memory pool; ``graph=False`` runs the
+same pieces eagerly, the CPU's default.
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ import torch
 from ..physics.fluid import (Fluid, physicality_guard,
                              primitive2state, state2primitive)
 from ..topology.domain import Domain
+from ..utils.graphs import Graphs, use_graph
 from .euler import euler_rhs, local_timestep, rk2_step
-from .fas import fas
+from .fas import FasCycle
 from .multigrid_domain import multigrid
 
 
@@ -67,6 +74,9 @@ class FasEuler:
         self.coarseners = list(hier.coarseners)
         self.prolongators = list(hier.prolongators)
         self.bcs = [make_bcs(d) for d in self.domains]
+        # the cycles by arm, n_iter and rtol (`fas.FasCycle`), captured on
+        # a CUDA state
+        self._graphs = Graphs()
         self.active = []
         for d in self.domains:
             if inside_fn is None:
@@ -94,18 +104,28 @@ class FasEuler:
         # fixed point: Q += clamp(omega, 0, 1) * r with r = dt*R, omega = 1
         return R * dt[:, None], torch.ones_like(Q)
 
-    def cycle(self, Q, *, n_iter: int = 20, rtol: float = 0.05):
-        """One FAS V-cycle; returns (Q, residual_reduction_ratio)."""
-        return fas(
-            self._f, Q,
-            coarseners=self.coarseners,
-            prolongators=self.prolongators,
-            n_iter=n_iter, rtol=rtol,
-        )
+    def cycle(self, Q, *, n_iter: int = 20, rtol: float = 0.05,
+              graph: Optional[bool] = None):
+        """One FAS V-cycle; returns (Q, residual_reduction_ratio).
+        ``graph`` follows `utils.graphs.use_graph`."""
+        return self._run("cycle", Q, n_iter, rtol, graph)
 
-    def smooth_only(self, Q, *, n_iter: int = 20, rtol: float = 0.05):
+    def smooth_only(self, Q, *, n_iter: int = 20, rtol: float = 0.05,
+                    graph: Optional[bool] = None):
         """Fine-level smoothing with no coarse correction (baseline)."""
-        return fas(self._f, Q, n_iter=n_iter, rtol=rtol)
+        return self._run("smooth", Q, n_iter, rtol, graph)
+
+    def _run(self, arm, Q, n_iter, rtol, graph):
+        coarse = arm == "cycle"
+
+        def make():
+            return FasCycle(
+                self._f, Q,
+                coarseners=self.coarseners if coarse else (),
+                prolongators=self.prolongators if coarse else (),
+                n_iter=n_iter, rtol=rtol)
+        return self._graphs.loop((arm, n_iter, rtol), make,
+                                 use_graph(graph, Q))(Q)
 
     def init_state(self, P0):
         P0 = torch.as_tensor(P0, device=self.domains[0].device)

@@ -7,8 +7,16 @@ Jacobian-vector products, a block-diagonal pseudo-inverse preconditioner, and
 a two-direction minimal-residual descent with optional coarse-to-fine
 multigrid cycling. JVPs are exact (`torch.func.jvp`, forward mode) instead
 of finite differences. Probes come from an explicit `torch.Generator` (the
-JAX package's PRNG keys); the solve loop is a Python loop that reads the
-residual norm on the host once an iteration to apply the stop rule.
+JAX package's PRNG keys).
+
+The solve's ``lax.while_loop`` is a `utils.graphs.GraphedLoop` over static
+buffers (`SolveLoop`): a head (``nr0``, the stop threshold, ``x`` and
+``r``) and one body a multigrid level (one outer iteration with its
+``n_inner`` inner ones; the host picks the level, which cycles
+coarsest-first as the JAX package's ``lax.switch`` does), replayed while
+the stop rule holds; the host reads its predicate once an iteration. On a
+CUDA state the pieces are captured in CUDA graphs (``graph=None``), with
+``graph=False`` and on the CPU they run eagerly.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.graphs import GraphedLoop, Piece, use_graph
 
 _EPS = 1.19e-7
 
@@ -153,6 +163,83 @@ def _proj_along(A: Linearization, v, b):
     return _dot(Av, b) / (_dot(Av, Av) + _EPS), Av
 
 
+class SolveLoop:
+    """`solve` over static buffers: ``b`` (the right-hand side), the
+    iterate ``x``, the residual ``r`` and the stop rule's scalars. The
+    caller sets ``A`` and ``prec`` and fills ``b`` (or a piece of its own
+    does, before ``head``); ``head``, ``bodies`` (one a multigrid level,
+    ``select(it)`` the one of iteration ``it``) and ``pred`` make the
+    loop, which ``loop`` runs alone."""
+
+    def __init__(self, b, *, n_iter: int = 100, n_inner: int = 1,
+                 rtol: float = 1e-2, atol: float = 1e-7, multigrid=None):
+        self.n_inner, self.rtol, self.atol = n_inner, rtol, atol
+        self.multigrid = multigrid
+        self.n_levels = 0 if multigrid is None else len(
+            multigrid.coarseners)
+        self.A: Optional[Linearization] = None
+        self.prec: Optional[PIPreconditioner] = None
+        self.b = b.detach().clone()
+        self.x = torch.zeros_like(self.b)
+        self.r = torch.zeros_like(self.b)
+        scalar = dict(dtype=b.dtype, device=b.device)
+        self.nr0 = torch.zeros((), **scalar)
+        self.stop = torch.zeros((), **scalar)
+        self.ratio = torch.zeros((), **scalar)
+        self.pred = torch.zeros((), dtype=torch.bool, device=b.device)
+        self.head = Piece(self._head)
+        self.bodies = [Piece(lambda n=n: self._body(n))
+                       for n in range(self.n_levels + 1)]
+        self.loop = GraphedLoop([self.head], self.bodies, self.pred, n_iter,
+                                select=self.select)
+
+    def select(self, it: int) -> int:
+        """The body of iteration ``it``: the multigrid level, from the
+        coarsest down to 0 (none), then again."""
+        return self.n_levels - it % (self.n_levels + 1)
+
+    def _smooth(self, level, s):
+        # level == 0 -> identity; level n -> coarsen_n |> prolong_n
+        if level == 0:
+            return s
+        return self.multigrid.prolongators[level - 1](
+            self.multigrid.coarseners[level - 1](s))
+
+    def _head(self):
+        b = self.b
+        nr0 = torch.sqrt(_dot(b, b))
+        self.nr0.copy_(nr0)
+        self.stop.copy_(nr0 * self.rtol + self.atol)
+        self.x.zero_()
+        self.r.copy_(b)
+        self._carry(torch.full_like(nr0, float("inf")))
+
+    def _body(self, n_mgrid):
+        A, prec, x, r = self.A, self.prec, self.x, self.r
+        for _ in range(self.n_inner):
+            s = prec(r)
+            s = self._smooth(n_mgrid, s)
+            alpha, As = _proj_along(A, s, r)
+            x = x + s * alpha
+            r = r - As * alpha
+            s2 = r / (_EPS + r.abs().max())
+            alpha, As = _proj_along(A, s2, r)
+            x = x + s2 * alpha
+            r = r - As * alpha
+        self.x.copy_(x)
+        self.r.copy_(r)
+        self._carry(torch.sqrt(_dot(r, r)))
+
+    def _carry(self, nr):
+        self.pred.copy_(nr >= self.stop)
+        self.ratio.copy_(nr / (self.nr0 + _EPS))
+
+    def capture(self, pool=None) -> None:
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        self.loop.capture(pool)
+
+
 def solve(
     A: Linearization,
     b,
@@ -163,42 +250,21 @@ def solve(
     rtol: float = 1e-2,
     atol: float = 1e-7,
     multigrid=None,
+    graph: Optional[bool] = None,
 ):
     """Two-direction minimal-residual descent with block-diagonal
     preconditioning and optional coarsest-to-finest multigrid cycling
     (reference ``src/point_implicit.jl:250-329``).
 
     Returns (x, |r| / |r0|), the ratio a 0-dim tensor on b's device.
+    ``graph`` follows `utils.graphs.use_graph` (on a CUDA state the loop
+    is captured for this call; `point_implicit_step` keeps its captures).
     """
     b = torch.as_tensor(b)
-    nr0 = torch.sqrt(_dot(b, b))
-
-    n_levels = 0 if multigrid is None else len(multigrid.coarseners)
-
-    def smooth(level, s):
-        # level == 0 -> identity; level n -> coarsen_n |> prolong_n
-        if level == 0:
-            return s
-        return multigrid.prolongators[level - 1](
-            multigrid.coarseners[level - 1](s))
-
-    stop = nr0 * rtol + atol
-    x = torch.zeros_like(b)
-    r = b
-    nr = torch.full_like(nr0, float("inf"))
-    it, n_mgrid = 0, n_levels
-    while it < n_iter and bool(nr >= stop):
-        for _ in range(n_inner):
-            s = prec(r)
-            s = smooth(n_mgrid, s)
-            alpha, As = _proj_along(A, s, r)
-            x = x + s * alpha
-            r = r - As * alpha
-            s2 = r / (_EPS + r.abs().max())
-            alpha, As = _proj_along(A, s2, r)
-            x = x + s2 * alpha
-            r = r - As * alpha
-        nr = torch.sqrt(_dot(r, r))
-        n_mgrid = n_levels if n_mgrid == 0 else n_mgrid - 1
-        it += 1
-    return x, nr / (nr0 + _EPS)
+    sl = SolveLoop(b, n_iter=n_iter, n_inner=n_inner, rtol=rtol, atol=atol,
+                   multigrid=multigrid)
+    sl.A, sl.prec = A, prec
+    if use_graph(graph, b):
+        sl.capture()
+    sl.loop()
+    return sl.x.clone(), sl.ratio.clone()

@@ -15,6 +15,14 @@ forward-mode JVPs (`torch.func.jvp`) through the flat-state block RHS
 (``kernels=False``), the route the JAX package's RHS takes off the TPU;
 the CUDA passes A and B have no forward derivative. The explicit bound at
 Q_n, which is not differentiated, keeps the kernel route.
+
+On a CUDA state the step runs captured in CUDA graphs (`PointImplicitStep`,
+the counterpart of the JAX package's ``jax.jit`` over the step): a head
+(`newton_map`, `linearize` with its Hutchinson probes and the solve's
+head), the solve's body replayed while its stop rule holds, and a tail
+(``Q1``, ``P1``). The captures are kept on the `BlockTables` (``bt``),
+one for each set of arguments: pass the same ``apply_bcs``, ``active`` and
+``generator`` objects from step to step to replay one capture.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ from ..ops.block_ops import euler_rhs_block
 from ..physics.fluid import (Fluid, physicality_guard, primitive2state,
                              state2primitive)
 from ..topology.blocks import BlockTables
-from .point_implicit import linearize, solve
+from ..utils.graphs import GraphedLoop, Piece, use_graph
+from .point_implicit import SolveLoop, _default_generator, linearize
 
 
 def newton_map(bt: BlockTables, fluid: Fluid, P, apply_bcs: Callable, *,
@@ -62,6 +71,64 @@ def newton_map(bt: BlockTables, fluid: Fluid, P, apply_bcs: Callable, *,
     return g, Qn
 
 
+class PointImplicitStep:
+    """`point_implicit_step` over static buffers: the input primitives
+    ``P``, the solve's buffers (`point_implicit.SolveLoop`) and the output
+    ``P1``. ``step(P)`` returns ``(P1, ratio)`` (new tensors); the pieces
+    run eagerly until `capture`. With ``generator=None`` the probes come
+    from a generator of the step's own, seeded 0 before every step (a
+    fresh generator seeded 0, as the eager step draws them)."""
+
+    def __init__(self, bt, fluid, P, apply_bcs, *, cfl, active,
+                 n_hutchinson_samples, n_krylov, relax, high_order,
+                 freeze_limiter, generator):
+        self.args = (bt, fluid, apply_bcs)
+        self.kw = dict(cfl=cfl, active=active, high_order=high_order,
+                       freeze_limiter=freeze_limiter)
+        self.n_samples, self.relax = n_hutchinson_samples, relax
+        self.P = P.detach().clone()
+        self.own = generator is None
+        self.gen = _default_generator(P) if self.own else generator
+        self.solve = SolveLoop(torch.zeros_like(self.P), n_iter=n_krylov,
+                               rtol=1e-2)
+        self.P1 = torch.zeros_like(self.P)
+        self.Qn = None
+        self.loop = GraphedLoop(
+            [Piece(self._head, [self.gen]), self.solve.head],
+            self.solve.bodies, self.solve.pred, n_krylov,
+            tail=[Piece(self._tail)], select=self.solve.select)
+
+    def _head(self):
+        bt, fluid, apply_bcs = self.args
+        g, Qn = newton_map(bt, fluid, self.P, apply_bcs, **self.kw)
+        A, b, prec = linearize(g, Qn, n_hutchinson_samples=self.n_samples,
+                               generator=self.gen)
+        self.Qn, self.solve.A, self.solve.prec = Qn, A, prec
+        self.solve.b.copy_(b)
+
+    def _tail(self):
+        _, fluid, apply_bcs = self.args
+        Q1 = self.Qn + self.relax * self.solve.x
+        self.P1.copy_(apply_bcs(physicality_guard(state2primitive(fluid,
+                                                                  Q1))))
+
+    def capture(self, pool) -> None:
+        self.loop.capture(pool)
+
+    @property
+    def iterations(self) -> int:
+        return self.loop.iterations
+
+    def __call__(self, P):
+        if P.shape != self.P.shape:
+            raise ValueError("the state's shape differs from the step's")
+        self.P.copy_(P)
+        if self.own:
+            self.gen.manual_seed(0)
+        self.loop()
+        return self.P1.clone(), self.solve.ratio.clone()
+
+
 def point_implicit_step(
     bt: BlockTables,
     fluid: Fluid,
@@ -76,6 +143,7 @@ def point_implicit_step(
     high_order: bool = True,
     freeze_limiter: bool = False,
     generator: Optional[torch.Generator] = None,
+    graph: Optional[bool] = None,
 ):
     """One backward-Euler pseudo step with point-implicit preconditioning
     on a block mesh (nd = 2 or 3).
@@ -89,14 +157,24 @@ def point_implicit_step(
     (the frozen residual equals the true residual at Q_n), only the
     Jacobian-vector products smooth out. ``generator`` draws the
     Hutchinson probes (a generator seeded 0 on P's device by default).
+    ``graph`` follows `utils.graphs.use_graph`: on a CUDA state the step
+    is captured at its first call with these arguments and replayed after
+    (`PointImplicitStep`, kept on ``bt``).
 
     Returns (P_new, linear_residual_ratio).
     """
-    g, Qn = newton_map(bt, fluid, P, apply_bcs, cfl=cfl, active=active,
-                       high_order=high_order, freeze_limiter=freeze_limiter)
-    A, b, prec = linearize(g, Qn, n_hutchinson_samples=n_hutchinson_samples,
-                           generator=generator)
-    dQ, ratio = solve(A, b, prec, n_iter=n_krylov, rtol=1e-2)
-    Q1 = Qn + relax * dQ
-    P1 = apply_bcs(physicality_guard(state2primitive(fluid, Q1)))
-    return P1, ratio
+    P = torch.as_tensor(P)
+    act = None if active is None else (active.data_ptr(),
+                                       tuple(active.shape),
+                                       tuple(active.stride()))
+    key = (fluid, apply_bcs, act, cfl, n_hutchinson_samples, n_krylov,
+           relax, high_order, freeze_limiter, generator, tuple(P.shape),
+           P.dtype)
+
+    def make():
+        return PointImplicitStep(
+            bt, fluid, P, apply_bcs, cfl=cfl, active=active,
+            n_hutchinson_samples=n_hutchinson_samples, n_krylov=n_krylov,
+            relax=relax, high_order=high_order,
+            freeze_limiter=freeze_limiter, generator=generator)
+    return bt._graphs.loop(key, make, use_graph(graph, P))(P)

@@ -24,6 +24,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.graphs import Graphs
+
 
 @dataclasses.dataclass
 class BlockTables:
@@ -75,6 +77,10 @@ class BlockTables:
     # sign vectors of the accumulations, one per mask (`signs`)
     _signs: Dict[Tuple[float, ...], torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    # the point-implicit steps on these tables, by their arguments
+    # (`solve.point_implicit_euler`), captured on the card
+    _graphs: Graphs = dataclasses.field(default_factory=Graphs, init=False,
+                                        repr=False, compare=False)
 
     def signs(self, signed_mask) -> torch.Tensor:
         """f32 [len(signed_mask)] on this table's device: -1 on the

@@ -26,11 +26,21 @@ overlaps); a staged mesh (``gloo`` with CUDA tensors) moves every
 exchange through host tensors, which no graph can hold, so it runs eager
 as the CPU does, and ``graph=True`` there raises. Nothing falls back: a
 step that cannot be captured raises.
+
+`GraphedLoop` is a loop whose stop rule reads the device (the FAS cycle,
+the point-implicit solve: the JAX package's ``lax.while_loop`` under
+``jax.jit``): a head, a body replayed while a device predicate holds and
+a tail, each a `Piece` (a function of no argument over static buffers)
+captured in its own graph, all in one pool. The host reads the predicate
+once before each body, as the eager loop does; the body count is the
+data's. A tensor that one piece hands to the next lives in a static
+buffer or was made by an earlier piece of the same run, so a graph may
+reuse the memory of another's intermediates whatever the body count.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Optional, Tuple
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,11 +135,108 @@ class GraphedStep:
         return self.run(X, 1), _clone(self.res)
 
 
+class Piece:
+    """A function of no argument that reads and writes tensors which
+    outlive it: called as it is until `capture`, then one replay a
+    call."""
+
+    def __init__(self, fn: Callable[[], None], generators: Sequence = ()):
+        self.fn = fn
+        # the `torch.Generator`s other than the default that ``fn`` draws
+        # from: a replay draws where the generator stands and advances it
+        self.generators = tuple(generators)
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+
+    def capture(self, pool) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        before = dict(kernels.launches)
+        with torch.cuda.graph(graph, pool=pool):
+            self.fn()
+        self.launches = {k: kernels.launches[k] - n
+                         for k, n in before.items()}
+        kernels.launches.update(before)   # capture launched nothing
+        self.graph = graph
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self.fn()
+            return
+        self.graph.replay()
+        for k, v in self.launches.items():
+            kernels.launches[k] += v
+
+
+class GraphedLoop:
+    """``head``, then ``bodies[select(it)]`` while ``it < n_iter`` and the
+    0-dim bool ``pred`` (written by the head and by every body) holds,
+    then ``tail``: the stop rule of the JAX package's ``while_loop``, its
+    predicate read on the host once before each body. ``head`` and
+    ``tail`` hold `Piece`s and nested loops (a FAS level's coarse
+    recursion), run in order. ``iterations`` is the last run's body
+    count."""
+
+    def __init__(self, head: Sequence, bodies: Sequence[Piece],
+                 pred: torch.Tensor, n_iter: int, tail: Sequence = (),
+                 select: Optional[Callable[[int], int]] = None):
+        self.head, self.bodies, self.tail = tuple(head), tuple(bodies), \
+            tuple(tail)
+        self.pred, self.n_iter = pred, n_iter
+        self.select = select or (lambda it: 0)
+        self.iterations = 0
+
+    def __call__(self) -> int:
+        for item in self.head:
+            item()
+        it = 0
+        while it < self.n_iter and bool(self.pred):
+            self.bodies[self.select(it)]()
+            it += 1
+        self.iterations = it
+        for item in self.tail:
+            item()
+        return it
+
+    def pieces(self):
+        """Every piece in the order of a run that takes each body once."""
+        for group in (self.head, self.bodies, self.tail):
+            for item in group:
+                if isinstance(item, GraphedLoop):
+                    yield from item.pieces()
+                else:
+                    yield item
+
+    def capture(self, pool) -> None:
+        """Run every piece once on a side stream (lazily made tables and
+        buffers are made there, outside the pool), then capture each, in
+        the same order, into ``pool``. The pieces' generators are left
+        where they stood."""
+        dev = self.pred.device
+        pieces = list(self.pieces())
+        generators = [g for p in pieces for g in p.generators]
+        states = [g.get_state() for g in generators]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for p in pieces:
+                p.fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for p in pieces:
+            p.capture(pool)
+        for g, s in zip(generators, states):
+            g.set_state(s)
+
+
 class Graphs:
-    """A case's captured steps, one a march variant, in one memory pool."""
+    """A case's captured steps, one a march variant, and its captured
+    loops, in one memory pool."""
 
     def __init__(self):
         self.steps: Dict[Hashable, GraphedStep] = {}
+        self.loops: Dict[Hashable, object] = {}
+        self.last = None
         self._pool = None
 
     def get(self, key: Hashable, step: Callable, X) -> GraphedStep:
@@ -141,6 +248,23 @@ class Graphs:
             self._pool = g.graph.pool()
             self.steps[key] = g
         return g
+
+    def loop(self, key: Hashable, make: Callable, captured: bool):
+        """The loop of variant ``key``, an object with ``capture(pool)``
+        that ``make()`` builds: where ``captured``, built and captured at
+        its first use and kept; else built anew, to run eagerly. ``last``
+        is the loop returned last (its ``iterations`` are the last
+        run's)."""
+        lp = self.loops.get(key) if captured else None
+        if lp is None:
+            lp = make()
+            if captured:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                lp.capture(self._pool)
+                self.loops[key] = lp
+        self.last = lp
+        return lp
 
 
 def march_loop(graphs: Graphs, key: Hashable, step: Callable, X, n: int,

@@ -14,7 +14,13 @@ the bs=4 sphere at wall_h=0.25 (18,432 cells) on the channel-split and
 the grid march, the 4096-cell wing's step and FAS cycle (its march shares
 the step's graph). The overlap split and the halo exchange exist only
 with several ranks: two spawned gloo ranks run one step of the
-overlapped block march under the guard."""
+overlapped block march under the guard. A fresh process runs one guarded
+sharded step on a one-rank gloo group and checks that no gloo thread
+outlives the group."""
+
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -185,3 +191,40 @@ def test_overlap_exchange_passes_capture_guard(tmp_path):
     spawn(overlap_rank, 2, backend="gloo", device="cpu",
           args=(str(tmp_path),), threads=1)
     assert all(bool(np.load(tmp_path / f"rank{p}.npy")) for p in range(2))
+
+
+# one guarded sharded gather step on a one-rank gloo group, in a process
+# of its own; prints the gloo threads left after the group
+_GUARDED_GROUP = """
+import glob, sys
+import torch
+sys.path.insert(0, "tests")
+from test_torch_capture import CaptureGuard
+from ibx_torch.cases import build_rae2822_sharded
+from ibx_torch.parallel import one_rank_group
+torch.set_num_threads(1)
+with one_rank_group("gloo"):
+    sdom, step, P0, case = build_rae2822_sharded(
+        1, device="cpu", wall_h=8e-2, feature_h=4e-2, cfl=0.7)
+    step(P0, graph=False)
+    with CaptureGuard():
+        step(P0)
+    del sdom, step, P0, case
+names = [open(t).read().strip() for t in glob.glob("/proc/self/task/*/comm")]
+print([n for n in names if "gloo" in n])
+"""
+
+
+def test_guarded_sharded_step_frees_its_group():
+    """A sharded step under the capture guard leaves no gloo thread once
+    its group is destroyed. The guard is a `TorchDispatchMode`, whose
+    first entry imports `torch._dynamo` and with it
+    `torch.distributed.nn.functional`, whose functions bind the live
+    group as a default argument: `ibx_torch.parallel` imports that module
+    before any group exists. A fresh process, since this one imported
+    `torch._dynamo` long ago."""
+    r = subprocess.run([sys.executable, "-c", _GUARDED_GROUP],
+                       cwd=Path(__file__).resolve().parent.parent,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "[]", r.stdout
