@@ -130,8 +130,10 @@ ends the run with a non-zero exit:
      the oracle's state, each with a linear ratio under 1
      and a finite state, the solved-cell residual under 3x its start
      (tests/test_point_implicit_euler.py), ms a step captured (eager
-     beside, from the step's phase-30 row, run first); the four kernel
-     counters stay 0 over phases 21-23;
+     beside, from the step's phase-30 row, run first), then the step's
+     phase-30 row with the default generator, whose capture replaces the
+     first on the tables; the four kernel counters stay 0 over phases
+     21-23;
  24. the multi-device runtime on four ranks (after phase 23): four gloo
      ranks spawned on the one card (NCCL refuses two ranks on one device),
      each with its own process: `build_rae2822_block_sharded(4)` at
@@ -197,8 +199,9 @@ ends the run with a non-zero exit:
      the captured step keeps; and the solver calls (in phases 22,
      23 and 31, before their first captured call: `FasEuler.cycle` and
      `smooth_only` on the verdict case and the flagship, the
-     point-implicit step at nd = 2 on the flagship and at nd = 3 on the
-     bs=8 sphere): 2 captured calls against 2 eager ones, bit-equal in
+     point-implicit step at nd = 2 on the flagship, with a caller's
+     generator and with the default one, and at nd = 3 on the bs=8
+     sphere): 2 captured calls against 2 eager ones, bit-equal in
      state and ratio, the same iterations on every level, launches a call
      (passes A and B once at nd = 3, 0 elsewhere) by counter and by name
      in a trace of the first call, ms a call (events over the calls after
@@ -1591,6 +1594,14 @@ def solver_phases(root, dev, smi):
         f"card: {smi}")
     assert all(r < 1.0 for r in ratios), ratios
     assert np.isfinite(r1) and r1 < 3.0 * r0, (r0, r1)
+    # phase 30 on the step with the default generator (reseeded 0 before
+    # each replay, as each eager step draws from a fresh one): its capture
+    # replaces the one above on the tables, in the same pool
+    solver_graph_phase(
+        f"flagship point-implicit step nd=2 ({RAE_CELLS} cells, frozen "
+        f"limiter, default generator)", pi_call(case, None), P, want={},
+        trace_eager=False)
+    assert len(bt._graphs.loops) == 1, bt._graphs.loops
     assert dict(K.launches) == zero, K.launches
     return dict(ms_cycle=ms["fas"][0], ms_smooth=ms["smooth"][0],
                 busy_cycle=busy_ms, activities_cycle=acts, sync_ms=d_ms,
@@ -2787,7 +2798,9 @@ def pi_call(case, gens, **kw):
     """``call(P, graph) -> (P', ratio, iterations)`` of
     `point_implicit_step` on ``case``'s block march, the frozen limiter and
     the freeze mask, the probes drawn from ``gens[graph is None]`` (one
-    generator each way, both reseeded 0 by the phase's ``reset``)."""
+    generator each way, both reseeded 0 by the phase's ``reset``), or
+    from the default generator (seeded 0 every step) where ``gens`` is
+    None."""
     from ibx_torch.solve import point_implicit_step
 
     active = case.active3.reshape(-1)
@@ -2796,7 +2809,8 @@ def pi_call(case, gens, **kw):
         P, ratio = point_implicit_step(
             case.bt, case.fluid, P, case.apply_bcs, cfl=PI_CFL,
             relax=PI_RELAX, active=active, freeze_limiter=True,
-            generator=gens[graph is None], graph=graph, **kw)
+            generator=None if gens is None else gens[graph is None],
+            graph=graph, **kw)
         return P, ratio, case.bt._graphs.last.iterations
     return call
 

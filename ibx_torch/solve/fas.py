@@ -11,19 +11,18 @@ level over static buffers (`FasCycle`): a head (``f``, the source, ``r``,
 coarse level starts from), the coarse level's loop, a tail (the
 prolonged correction) and a body (one smoothing iteration), replayed
 while the stop rule holds; the host reads the rule's predicate once an
-iteration. On a CUDA state each piece is captured in a CUDA graph
-(``graph=None``, the default there); ``graph=False`` runs the same pieces
-eagerly, as the CPU does.
+iteration. `fas` runs the pieces eagerly; `FasEuler` keeps its cycles
+and captures each piece in a CUDA graph on a CUDA state.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
 
-from ..utils.graphs import GraphedLoop, Piece, use_graph
+from ..utils.graphs import GraphedLoop, Piece
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -130,9 +129,7 @@ class FasCycle:
         if prescribed_f is not None:
             self.top.put("pf", prescribed_f)
 
-    def capture(self, pool=None) -> None:
-        if pool is None:
-            pool = torch.cuda.graph_pool_handle()
+    def capture(self, pool) -> None:
         self.top.loop.capture(pool)
 
     @property
@@ -161,7 +158,6 @@ def fas(
     n_iter: int = 50,
     rtol: float = 0.1,
     atol: float = 1e-7,
-    graph: Optional[bool] = None,
 ):
     """One FAS cycle. Returns (Q, residual_reduction_ratio), the ratio a
     0-dim float32 tensor on Q's device.
@@ -169,13 +165,10 @@ def fas(
     Semantics follow the reference exactly, including its convention that the
     last coarsener in the list is never recursed into
     (``src/solver.jl:60-77``: recursion only while more than one remains).
-    ``graph`` follows `utils.graphs.use_graph` (on a CUDA state the cycle
-    is captured for this call; `FasEuler` keeps its captures).
+    Runs eagerly; `FasEuler` keeps its cycles captured on the card.
     """
     cycle = FasCycle(f, Q, coarseners=coarseners, prolongators=prolongators,
                      prescribed_f=prescribed_f,
                      multigrid_level=multigrid_level, n_iter=n_iter,
                      rtol=rtol, atol=atol)
-    if use_graph(graph, Q):
-        cycle.capture()
     return cycle(Q, prescribed_f)

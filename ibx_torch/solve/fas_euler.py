@@ -74,8 +74,8 @@ class FasEuler:
         self.coarseners = list(hier.coarseners)
         self.prolongators = list(hier.prolongators)
         self.bcs = [make_bcs(d) for d in self.domains]
-        # the cycles by arm, n_iter and rtol (`fas.FasCycle`), captured on
-        # a CUDA state
+        # the cycles (`fas.FasCycle`) captured on a CUDA state: one an
+        # arm, for its last n_iter and rtol
         self._graphs = Graphs()
         self.active = []
         for d in self.domains:
@@ -124,7 +124,7 @@ class FasEuler:
                 coarseners=self.coarseners if coarse else (),
                 prolongators=self.prolongators if coarse else (),
                 n_iter=n_iter, rtol=rtol)
-        return self._graphs.loop((arm, n_iter, rtol), make,
+        return self._graphs.loop(arm, (n_iter, rtol), make,
                                  use_graph(graph, Q))(Q)
 
     def init_state(self, P0):

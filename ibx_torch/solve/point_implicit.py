@@ -14,9 +14,9 @@ buffers (`SolveLoop`): a head (``nr0``, the stop threshold, ``x`` and
 ``r``) and one body a multigrid level (one outer iteration with its
 ``n_inner`` inner ones; the host picks the level, which cycles
 coarsest-first as the JAX package's ``lax.switch`` does), replayed while
-the stop rule holds; the host reads its predicate once an iteration. On a
-CUDA state the pieces are captured in CUDA graphs (``graph=None``), with
-``graph=False`` and on the CPU they run eagerly.
+the stop rule holds; the host reads its predicate once an iteration.
+`solve` runs the pieces eagerly; `point_implicit_step` captures them in
+CUDA graphs on a CUDA state.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..utils.graphs import GraphedLoop, Piece, use_graph
+from ..utils.graphs import GraphedLoop, Piece
 
 _EPS = 1.19e-7
 
@@ -234,11 +234,6 @@ class SolveLoop:
         self.pred.copy_(nr >= self.stop)
         self.ratio.copy_(nr / (self.nr0 + _EPS))
 
-    def capture(self, pool=None) -> None:
-        if pool is None:
-            pool = torch.cuda.graph_pool_handle()
-        self.loop.capture(pool)
-
 
 def solve(
     A: Linearization,
@@ -250,21 +245,18 @@ def solve(
     rtol: float = 1e-2,
     atol: float = 1e-7,
     multigrid=None,
-    graph: Optional[bool] = None,
 ):
     """Two-direction minimal-residual descent with block-diagonal
     preconditioning and optional coarsest-to-finest multigrid cycling
     (reference ``src/point_implicit.jl:250-329``).
 
     Returns (x, |r| / |r0|), the ratio a 0-dim tensor on b's device.
-    ``graph`` follows `utils.graphs.use_graph` (on a CUDA state the loop
-    is captured for this call; `point_implicit_step` keeps its captures).
+    Runs eagerly; `point_implicit_step` keeps its solve captured on the
+    card.
     """
     b = torch.as_tensor(b)
     sl = SolveLoop(b, n_iter=n_iter, n_inner=n_inner, rtol=rtol, atol=atol,
                    multigrid=multigrid)
     sl.A, sl.prec = A, prec
-    if use_graph(graph, b):
-        sl.capture()
     sl.loop()
     return sl.x.clone(), sl.ratio.clone()

@@ -20,9 +20,10 @@ On a CUDA state the step runs captured in CUDA graphs (`PointImplicitStep`,
 the counterpart of the JAX package's ``jax.jit`` over the step): a head
 (`newton_map`, `linearize` with its Hutchinson probes and the solve's
 head), the solve's body replayed while its stop rule holds, and a tail
-(``Q1``, ``P1``). The captures are kept on the `BlockTables` (``bt``),
-one for each set of arguments: pass the same ``apply_bcs``, ``active`` and
-``generator`` objects from step to step to replay one capture.
+(``Q1``, ``P1``). The capture is kept on the `BlockTables` (``bt``) for
+the step's last arguments: a step with others (another ``cfl``, or a new
+``apply_bcs``, ``active`` or ``generator`` object) captures anew and drops
+it. Pass the same objects from step to step to replay one capture.
 """
 
 from __future__ import annotations
@@ -158,8 +159,9 @@ def point_implicit_step(
     Jacobian-vector products smooth out. ``generator`` draws the
     Hutchinson probes (a generator seeded 0 on P's device by default).
     ``graph`` follows `utils.graphs.use_graph`: on a CUDA state the step
-    is captured at its first call with these arguments and replayed after
-    (`PointImplicitStep`, kept on ``bt``).
+    is captured at its first call with these arguments and replayed while
+    they stay (`PointImplicitStep`, kept on ``bt`` until a step with
+    other arguments replaces it).
 
     Returns (P_new, linear_residual_ratio).
     """
@@ -177,4 +179,5 @@ def point_implicit_step(
             n_hutchinson_samples=n_hutchinson_samples, n_krylov=n_krylov,
             relax=relax, high_order=high_order,
             freeze_limiter=freeze_limiter, generator=generator)
-    return bt._graphs.loop(key, make, use_graph(graph, P))(P)
+    return bt._graphs.loop("point_implicit_step", key, make,
+                           use_graph(graph, P))(P)

@@ -77,8 +77,8 @@ class BlockTables:
     # sign vectors of the accumulations, one per mask (`signs`)
     _signs: Dict[Tuple[float, ...], torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
-    # the point-implicit steps on these tables, by their arguments
-    # (`solve.point_implicit_euler`), captured on the card
+    # the point-implicit step on these tables (`solve.point_implicit_euler`)
+    # captured on the card for its last arguments
     _graphs: Graphs = dataclasses.field(default_factory=Graphs, init=False,
                                         repr=False, compare=False)
 

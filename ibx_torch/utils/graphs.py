@@ -12,12 +12,13 @@ wrappers count launches in Python, which runs once, at capture: the
 counts of the captured step are recorded and added on every replay, so
 `ibx_torch.ops.kernels.launches` reads as it would after the eager loop.
 
-`Graphs` holds one captured step per march variant of a case, all in one
-memory pool (one step's intermediates, not one a variant), and
-`march_loop` is every case's ``march``: captured on a CUDA state unless
-``graph=False``, the eager loop on the CPU. `graphed_call` is a step
-called one at a time (a sharded case's ``step``, the wing's FAS cycle):
-one replay a call, returning the step's ``res`` too.
+`Graphs` holds one captured step per march variant of a case and one
+captured loop a slot (a loop captured for other arguments replaces the
+slot's last), all in one memory pool (one step's intermediates, not one a
+variant), and `march_loop` is every case's ``march``: captured on a CUDA
+state unless ``graph=False``, the eager loop on the CPU. `graphed_call` is
+a step called one at a time (a sharded case's ``step``, the wing's FAS
+cycle): one replay a call, returning the step's ``res`` too.
 
 A sharded march passes its `DeviceMesh`: over ``nccl`` its collectives
 and its halo exchange are captured with the step (the exchange runs on
@@ -40,6 +41,7 @@ reuse the memory of another's intermediates whatever the body count.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
@@ -235,7 +237,8 @@ class Graphs:
 
     def __init__(self):
         self.steps: Dict[Hashable, GraphedStep] = {}
-        self.loops: Dict[Hashable, object] = {}
+        # one captured loop a slot: (its key, the loop)
+        self.loops: Dict[Hashable, Tuple[Hashable, object]] = {}
         self.last = None
         self._pool = None
 
@@ -249,21 +252,29 @@ class Graphs:
             self.steps[key] = g
         return g
 
-    def loop(self, key: Hashable, make: Callable, captured: bool):
-        """The loop of variant ``key``, an object with ``capture(pool)``
-        that ``make()`` builds: where ``captured``, built and captured at
-        its first use and kept; else built anew, to run eagerly. ``last``
-        is the loop returned last (its ``iterations`` are the last
-        run's)."""
-        lp = self.loops.get(key) if captured else None
-        if lp is None:
+    def loop(self, slot: Hashable, key: Hashable, make: Callable,
+             captured: bool):
+        """The loop of ``slot`` for the arguments ``key``, an object with
+        ``capture(pool)`` that ``make()`` builds: where ``captured``,
+        built and captured at the first use of ``key`` and kept until a
+        call of the slot with another key captures its own (into the same
+        pool, whose free memory it reuses) and drops it; else built anew,
+        to run eagerly. ``last`` is the loop returned last (its
+        ``iterations`` are the last run's)."""
+        held = self.loops.get(slot) if captured else None
+        if held is not None and held[0] == key:
+            lp = held[1]
+        else:
             lp = make()
             if captured:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 lp.capture(self._pool)
-                self.loops[key] = lp
+                self.loops[slot] = (key, lp)
         self.last = lp
+        if held is not None and held[1] is not lp:
+            del held
+            gc.collect()   # the dropped loop's pieces hold it in cycles
         return lp
 
 

@@ -8,16 +8,20 @@ path, with every head, body and tail under the capture guard of
 `test_torch_capture.py` (no host upload or read, no data-dependent
 shape; the stop rule's read sits between the pieces): ``Q``/``x``/``P``
 and the ratio bit-equal to the oracle's, and the same iterations on
-every level. ``graph=True`` on a CPU state raises. The fixtures are the
+every level. ``graph=True`` on a CPU state raises where a call keeps
+its captures (`FasEuler`, `point_implicit_step`), and a keeper holds one
+capture a loop, replaced when the arguments change. The fixtures are the
 port tests' sizes: `FasEuler` (rk2, max_levels=2) on the RAE2822 gather
 case at wall_h=8e-2 (16,768 cells), a FAS cycle and `solve` on small
 synthetic problems whose stop rule ends loops early, and the
-point-implicit step on the block case of the same mesh (nd = 2, a
-caller's generator over two steps) and on the bs=4 sphere at
-wall_h=0.25 (nd = 3, 18,432 cells, the default generator). The steps
+point-implicit step, two steps each, on the block case of the same mesh
+(nd = 2, a caller's generator) and on the bs=4 sphere at wall_h=0.25
+(nd = 3, 18,432 cells, the default generator). The steps
 take one Hutchinson sample and two Krylov iterations: the split does
 not depend on them, and each JVP of the block RHS costs about half a
 second here."""
+
+import weakref
 
 import numpy as np
 import pytest
@@ -34,7 +38,8 @@ from ibx_torch.solve import (FasEuler, Linearization, PIPreconditioner,
                              point_implicit_step, solve)
 from ibx_torch.solve.point_implicit import _EPS, _dot, _proj_along
 from ibx_torch.solve.point_implicit_euler import newton_map
-from ibx_torch.utils.graphs import GraphedLoop, Piece
+from ibx_torch.solve import fas_euler, point_implicit_euler
+from ibx_torch.utils.graphs import GraphedLoop, Graphs, Piece
 
 from test_torch_capture import CaptureGuard
 
@@ -267,8 +272,6 @@ def test_fas_split_matches_todays_loop(guarded):
                    rtol=0.05, **kw)
         assert torch.equal(Q, Qr) and torch.equal(r, rr)
         assert 0 < min(iters.values()) and max(iters.values()) < 40
-    with pytest.raises(ValueError, match="CUDA state"):
-        fas(f, Q0, coarseners=cs, prolongators=ps, graph=True)
 
 
 @pytest.mark.parametrize("arm", ["cycle", "smooth_only"])
@@ -329,28 +332,25 @@ def test_solve_split_matches_todays_loop(guarded, mg):
     x, r = solve(A, b, prec, n_iter=40, rtol=1e-4, multigrid=mgd)
     assert torch.equal(x, xr) and torch.equal(r, rr)
     assert 0 < it < 40
-    with pytest.raises(ValueError, match="CUDA state"):
-        solve(Linearization(f, x0, b), b, PIPreconditioner(
-            prec.inverse_diagonal), graph=True)
 
 
 @pytest.mark.parametrize("nd", ["nd2", "nd3"])
 def test_point_implicit_step_split_matches_todays_step(blocks, guarded,
                                                        nd):
-    """`point_implicit_step` (the default, eager on the CPU; the frozen
-    limiter, the freeze mask) against the oracle: at nd = 2 two steps
+    """Two steps of `point_implicit_step` (the default, eager on the CPU;
+    the frozen limiter, the freeze mask) against the oracle: at nd = 2
     with a caller's generator (each step draws where the last left it),
-    at nd = 3 one step with the default generator (a generator seeded 0
-    each step). P and the ratio bit-equal, the same iterations."""
+    at nd = 3 with the default generator (a generator seeded 0 each
+    step). P and the ratio bit-equal, the same iterations."""
     case = blocks[nd]
     bt, fl = case.bt, case.fluid
     active = case.active3.reshape(-1)
     kw = dict(cfl=5.0, active=active, n_hutchinson_samples=1, n_krylov=2,
               relax=0.8, freeze_limiter=True)
-    steps, gens = (2, [torch.Generator().manual_seed(7)
-                       for _ in range(2)]) if nd == "nd2" else (1, [None] * 2)
+    gens = ([torch.Generator().manual_seed(7) for _ in range(2)]
+            if nd == "nd2" else [None] * 2)
     P = Pr = _perturbed(case)
-    for _ in range(steps):
+    for _ in range(2):
         Pr, rr, it = todays_step(bt, fl, Pr, case.apply_bcs,
                                  generator=gens[0], **kw)
         P, r = point_implicit_step(bt, fl, P, case.apply_bcs,
@@ -361,3 +361,59 @@ def test_point_implicit_step_split_matches_todays_step(blocks, guarded,
     assert not bt._graphs.loops
     with pytest.raises(ValueError, match="CUDA state"):
         point_implicit_step(bt, fl, P, case.apply_bcs, graph=True, **kw)
+
+
+# -- what a keeper of captures holds ---------------------------------------------
+
+class _Captured:
+    """Stands in for a captured loop (`fas.FasCycle`,
+    `point_implicit_euler.PointImplicitStep`): records the pool it was
+    captured into and returns its input."""
+
+    def __init__(self, *args, **kw):
+        self.pool, self.iterations = None, 0
+
+    def capture(self, pool):
+        self.pool = pool
+
+    def __call__(self, X, *args):
+        return X.clone(), torch.zeros(())
+
+
+@pytest.mark.parametrize("keeper", ["fas_euler", "point_implicit_step"])
+def test_a_keeper_holds_one_capture_a_loop(rae_gather, blocks, monkeypatch,
+                                           keeper):
+    """With every call taken as captured (`use_graph` True, a stand-in
+    loop and pool), a ramp of rtol (`FasEuler.cycle`) or cfl
+    (`point_implicit_step`) keeps one capture, the last: each new value
+    captures once into the one pool and drops the capture before it;
+    the same value again replays it."""
+    pool = ("pool",)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: pool)
+    graphs = Graphs()
+    if keeper == "fas_euler":
+        case, fe = rae_gather
+        mod, cls, X = fas_euler, "FasCycle", fe.init_state(case.P0)
+        monkeypatch.setattr(fe, "_graphs", graphs)
+
+        def call(x):
+            return fe.cycle(X, rtol=x)
+    else:
+        case = blocks["nd2"]
+        mod, cls, X = point_implicit_euler, "PointImplicitStep", case.P0
+        monkeypatch.setattr(case.bt, "_graphs", graphs)
+
+        def call(x):
+            return point_implicit_step(case.bt, case.fluid, X,
+                                       case.apply_bcs, cfl=x)
+    monkeypatch.setattr(mod, cls, _Captured)
+    monkeypatch.setattr(mod, "use_graph", lambda graph, X: True)
+    made = []
+    for x in (5.0, 6.0, 7.0, 7.0, 5.0):
+        call(x)
+        if not made or graphs.last is not made[-1]():
+            made.append(weakref.ref(graphs.last))
+        assert len(graphs.loops) == 1 and graphs.last.pool is pool
+        assert [m() is not None for m in made] == [False] * (
+            len(made) - 1) + [True]
+    assert len(made) == 4
