@@ -227,6 +227,15 @@ ends the run with a non-zero exit:
      (`build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16)`, the bench's
      own 3D case); the bench's JSON line, with its ``sharded_1dev`` and
      ``sphere3d`` figures (no ``err:``), on a line of its own;
+ 34. the program's spans on the card (right after phase 2, in a process of
+     its own: `python3 chip_smoke.py --phase 34`; on the 53,248-cell
+     `build_rae2822(wall_h=8e-2, feature_h=4e-2)`): the globaltimer's
+     calibration within 20 us, a captured march under
+     `monitor.tracing()` giving one ``march.step`` span a replay (fresh
+     slots every replay, in order, the replays counted) beside its
+     untraced graph, the same march's launches by name unchanged off, and
+     a stamp kernel's start in a `torch.profiler` trace within 50 us of
+     its stamp on the host clock;
 then one JSON line of per-kernel numbers (with each kernel's launches a
 step on the sharded channel-split march), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -239,6 +248,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -550,7 +560,7 @@ def kernel_resources():
     for line in K.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"((?:euler_pass_[ab]|rk2_update)_kernel)"
+            k = re.search(r"((?:euler_pass_[ab]|rk2_update|stamp)_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
             args = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
             name = k.group(1) + ("<" + ", ".join(
@@ -2489,6 +2499,78 @@ def sharded_sphere_full(case, smi, cs_ms_step):
     return {k: launches[k] // SHARD_SPHERE_STEPS for k in launches}
 
 
+def trace_phase(dev, smi):
+    """Phase 34: the program's spans on the card (see the docstring)."""
+    from ibx_torch.cases import build_rae2822
+    from ibx_torch.utils import monitor
+
+    t0 = time.perf_counter()
+    case = build_rae2822(wall_h=8e-2, feature_h=4e-2, cfl=0.7, device=dev)
+    steps = 6
+    case.march(case.P0, 2)          # captures the untraced step
+    torch.cuda.synchronize()
+    before = dict(case._graphs.steps)
+    with monitor.tracing():
+        cal = monitor.records()["calibration"]
+        case.march(case.P0, 1)      # captures the traced step
+        torch.cuda.synchronize()
+        monitor.clear()
+        case.march(case.P0, steps)
+        rec = monitor.records()
+    (unc,) = [c["uncertainty_ns"] for c in cal.values()]
+    log(f"[trace] calibration {cal} on {smi}")
+    check("trace: calibration uncertainty (us)", unc / 1e3, 20.0)
+    st = [s for s in rec["device"] if s["name"] == "march.step"]
+    assert len(st) == steps, f"{len(st)} march.step spans, want {steps}"
+    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(st, st[1:])), \
+        "march.step spans overlap"
+    assert rec["counters"].get("graph.replays") == steps, rec["counters"]
+    assert "trace.dropped" not in rec["counters"], rec["counters"]
+    assert set(case._graphs.steps) == set(before) | {("traced", "block")}
+    assert all(case._graphs.steps[k] is g for k, g in before.items())
+    parts = {}
+    for s in rec["device"]:
+        parts[s["name"]] = parts.get(s["name"], 0.0) + (
+            s["t1_ns"] - s["t0_ns"]) / 1e6 / steps
+    log(f"[trace] ms a step by span: {json.dumps(parts)}")
+
+    # off: the untraced graph replays as before, its launches unchanged
+    off = device_trace(lambda: case.march(case.P0, steps), steps)
+    with monitor.tracing():
+        on = device_trace(lambda: case.march(case.P0, steps), steps)
+    log(f"[trace] device activities a step: off {off[1]:.1f}, on "
+        f"{on[1]:.1f}; busy ms a step off {off[0]:.4f}, on {on[0]:.4f}")
+    assert on[1] > off[1], "the traced step carries no stamps"
+
+    # a stamp's converted time against the profiler's kernel start
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1 << 20, device=dev)
+    with monitor.tracing():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            with monitor.device_span("probe", dev):
+                x.mul_(1.0001)
+            torch.cuda.synchronize()
+        probe = [s for s in monitor.records()["device"]
+                 if s["name"] == "probe"][0]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    base = int(trace["baseTimeNanoseconds"])
+    stamps = sorted(float(e["ts"]) for e in trace["traceEvents"]
+                    if e.get("cat") == "kernel"
+                    and "stamp_kernel" in e.get("name", ""))
+    assert len(stamps) == 2, f"{len(stamps)} stamp kernels traced"
+    gap = [abs(base + stamps[0] * 1e3 - probe["t0_ns"]) / 1e3,
+           abs(base + stamps[1] * 1e3 - probe["t1_ns"]) / 1e3]
+    log(f"[trace] profiler's stamp starts vs the stamps (us): {gap}")
+    check("trace: stamp vs profiler (us)", max(gap), 50.0)
+    del case
+    log(f"[trace] phase 34 took {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_name_counts(events):
     """Launches of each kernel counter's kernel among the device events of
     a `torch.profiler` trace, by the kernel's name (demangled or not)."""
@@ -3021,6 +3103,13 @@ def main() -> int:
     K.build(verbose=True)
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    # phase 34 in a process of its own: after a few `torch.profiler`
+    # sessions in one process, later sessions lose kernel records, so
+    # its sessions and the other phases' must not share a process
+    r = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                        "--phase", "34"], cwd=root)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 34 exited {r.returncode}")
 
     rows, blk3d, case3d = sphere_phases(dev)
     t0 = time.perf_counter()
@@ -3081,5 +3170,21 @@ def main() -> int:
     return 0
 
 
+def trace_main() -> int:
+    """Phase 34 alone (``--phase 34``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from ibx_torch.ops import kernels as K
+    K.build()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    trace_phase(torch.device("cuda"), smi.splitlines()[0])
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(trace_main() if sys.argv[1:] == ["--phase", "34"] else main())

@@ -41,7 +41,8 @@ from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
 from ..topology.domain import Domain, require_device
-from ..utils.graphs import Graphs, march_loop
+from ..utils.graphs import Graphs, at_boundary, march_loop
+from ..utils.monitor import span
 
 RAE_DAT = os.path.join(os.path.dirname(__file__), "data", "rae2822.dat")
 FAMILIES = ("farfield", "wall")
@@ -140,9 +141,15 @@ class Rae2822Case:
         if not self.blocks_on:
             return march_loop(self._graphs, "gather", self._gather_step, P,
                               n_steps, graph)
-        return to_flat(self.bt, march_loop(
-            self._graphs, "block", self._grid_step, to_blocks(self.bt, P),
+        return self._from_grid(march_loop(
+            self._graphs, "block", self._grid_step, self._to_grid(P),
             n_steps, graph))
+
+    def _to_grid(self, P):
+        return at_boundary(lambda X: to_blocks(self.bt, X), P)
+
+    def _from_grid(self, P3):
+        return at_boundary(lambda X: to_flat(self.bt, X), P3)
 
     def march_robust(self, P, n_steps: int, *,
                      graph: Optional[bool] = None):
@@ -160,9 +167,8 @@ class Rae2822Case:
                 high_order=self.high_order, active3=self.active3,
                 fix3=ones3, cut3=self.cut3)
 
-        return to_flat(self.bt, march_loop(
-            self._graphs, "robust", one, to_blocks(self.bt, P), n_steps,
-            graph))
+        return self._from_grid(march_loop(
+            self._graphs, "robust", one, self._to_grid(P), n_steps, graph))
 
 
 def build_rae2822(
@@ -215,96 +221,100 @@ def build_rae2822(
         reflect_solid_images = True
         mirror_wall = True
     t0 = time.perf_counter()
-    stl = merge_points(load_surface(RAE_DAT))
-    features = DistanceField(feature_regions(stl, radius=0.05))
+    with span("build.mesh"):
+        stl = merge_points(load_surface(RAE_DAT))
+        features = DistanceField(feature_regions(stl, radius=0.05))
 
-    msh = build_mesh(
-        [-farfield, -farfield], [2 * farfield, 2 * farfield],
-        ("wall", stl, wall_h),
-        refinement_regions=[(features, feature_h)],
-        block_size=block_size,
-    )
-    _centers, _widths, _ = get_cells(msh)
-    inside = points_inside(stl, _centers)
+        msh = build_mesh(
+            [-farfield, -farfield], [2 * farfield, 2 * farfield],
+            ("wall", stl, wall_h),
+            refinement_regions=[(features, feature_h)],
+            block_size=block_size,
+        )
+        _centers, _widths, _ = get_cells(msh)
+        inside = points_inside(stl, _centers)
 
-    # cut-cell solved set: every cell with fluid fraction above the floor
-    # is marched, center-in-solid cut cells included (freezing them would
-    # rebuild the staircase wall one row lower)
-    cc_alpha = solve_in = None
-    if cutcell:
-        cc_alpha = fluid_fractions_2d(
-            stl, msh.distance_fields["wall"], _centers, _widths, inside)
-        solve_in = inside & (cc_alpha > _ALPHA_FLOOR)
-
-    dom = Domain(
-        msh,
-        n_partitions=n_partitions,
-        hypercube_families=[
-            ("farfield", [(0, False), (0, True), (1, False), (1, True)]),
-        ],
-        fluid_ghost_ratio=fluid_ghost_ratio,
-        reflect_solid_images=reflect_solid_images,
-        ghost_layer_ratio=ghost_layer_ratio,
-        solve_inside_cells=solve_in,
-        device=device,
-    )
-
-    # freeze cells strictly inside the airfoil (their free evolution, the
-    # reference's behavior, diverges at fine resolution and pollutes
-    # image-point stencils through the interior ghost band); under the
-    # cut-cell flag, in-solid cells above the fluid-fraction floor are
-    # solved instead
-    solved_mask = ~inside if solve_in is None else (~inside | solve_in)
-
-    fluid = make_fluid()
-    T_inf = 288.15
-    p_inf = 101325.0
-    a = float(np.sqrt(1.4 * 283.0 * T_inf))
-    V = mach * a
-    al = np.deg2rad(alpha_deg)
-    P_inf = np.array(
-        [p_inf, T_inf, V * np.cos(al), V * np.sin(al)], dtype=np.float32
-    )
-    farfield_bc = flow_bc(fluid, P_inf, device=device)
-    wall_bc = flow_bc(fluid, [p_inf, T_inf, 0.0], normal_flow=True,
-                      device=device)
-    bc_fns = {
-        "farfield": lambda Pi, nrm: apply_flow_bc(farfield_bc, Pi, nrm),
-        "wall": lambda Pi, nrm: apply_flow_bc(wall_bc, Pi, nrm),
-    }
-
-    P0 = np.tile(P_inf, (dom.ncells, 1))
-    P0[~solved_mask, 2:] = 0.0      # stagnant solid interior (frozen)
-    case = Rae2822Case(
-        dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, alpha=alpha_deg,
-        cfl=cfl, high_order=high_order, scheme=scheme,
-        freeze_gradients=freeze_gradients, irs_eps=irs_eps, bc_fns=bc_fns,
-        bt=None, bc=None, active3=None, fix3=None, flat_bcs=None,
-        active=None, P0=None, build_seconds=0.0)
-    if blocks_on:
-        _block_tables(case, stl, wall_h, te_fix_radius, wall_fix_cells,
-                      solved_mask, device)
-        if mirror_wall:
-            case.mirror = ("wall",)
-            npb = case.bt.block_size ** case.bt.nd
-            case.mirror_scale = _mirror_gate(
-                dom, stl, case.bc.ghost_b * npb + case.bc.ghost_w,
-                case.bc.normals, device)
+        # cut-cell solved set: every cell with fluid fraction above the
+        # floor is marched, center-in-solid cut cells included (freezing
+        # them would rebuild the staircase wall one row lower)
+        cc_alpha = solve_in = None
         if cutcell:
-            cm = cut_metrics_2d(
-                stl, msh.distance_fields["wall"], dom.centers, dom.widths,
-                solved_mask, dom.face_dim, dom.face_owner,
-                dom.face_neighbor, alpha=cc_alpha, alpha_floor=_ALPHA_FLOOR)
-            case.cut3 = cut3_from_numpy(cm, case.bt, device)
-    else:
-        case.active = torch.as_tensor(solved_mask.astype(np.float32),
-                                      device=device)
-        case.flat_bcs = _flat_bcs(dom, stl, bc_fns, mirror_wall, device)
-        if n_partitions == 1:
-            dom.partitions          # built here, inside build_seconds
-    case.P0 = case.apply_bcs(torch.as_tensor(P0, device=device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+            cc_alpha = fluid_fractions_2d(
+                stl, msh.distance_fields["wall"], _centers, _widths, inside)
+            solve_in = inside & (cc_alpha > _ALPHA_FLOOR)
+
+    with span("build.domain"):
+        dom = Domain(
+            msh,
+            n_partitions=n_partitions,
+            hypercube_families=[
+                ("farfield", [(0, False), (0, True), (1, False), (1, True)]),
+            ],
+            fluid_ghost_ratio=fluid_ghost_ratio,
+            reflect_solid_images=reflect_solid_images,
+            ghost_layer_ratio=ghost_layer_ratio,
+            solve_inside_cells=solve_in,
+            device=device,
+        )
+
+    with span("build.blocks"):
+        # freeze cells strictly inside the airfoil (their free evolution, the
+        # reference's behavior, diverges at fine resolution and pollutes
+        # image-point stencils through the interior ghost band); under the
+        # cut-cell flag, in-solid cells above the fluid-fraction floor are
+        # solved instead
+        solved_mask = ~inside if solve_in is None else (~inside | solve_in)
+
+        fluid = make_fluid()
+        T_inf = 288.15
+        p_inf = 101325.0
+        a = float(np.sqrt(1.4 * 283.0 * T_inf))
+        V = mach * a
+        al = np.deg2rad(alpha_deg)
+        P_inf = np.array(
+            [p_inf, T_inf, V * np.cos(al), V * np.sin(al)], dtype=np.float32
+        )
+        farfield_bc = flow_bc(fluid, P_inf, device=device)
+        wall_bc = flow_bc(fluid, [p_inf, T_inf, 0.0], normal_flow=True,
+                          device=device)
+        bc_fns = {
+            "farfield": lambda Pi, nrm: apply_flow_bc(farfield_bc, Pi, nrm),
+            "wall": lambda Pi, nrm: apply_flow_bc(wall_bc, Pi, nrm),
+        }
+
+        P0 = np.tile(P_inf, (dom.ncells, 1))
+        P0[~solved_mask, 2:] = 0.0      # stagnant solid interior (frozen)
+        case = Rae2822Case(
+            dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, alpha=alpha_deg,
+            cfl=cfl, high_order=high_order, scheme=scheme,
+            freeze_gradients=freeze_gradients, irs_eps=irs_eps, bc_fns=bc_fns,
+            bt=None, bc=None, active3=None, fix3=None, flat_bcs=None,
+            active=None, P0=None, build_seconds=0.0)
+        if blocks_on:
+            _block_tables(case, stl, wall_h, te_fix_radius, wall_fix_cells,
+                          solved_mask, device)
+            if mirror_wall:
+                case.mirror = ("wall",)
+                npb = case.bt.block_size ** case.bt.nd
+                case.mirror_scale = _mirror_gate(
+                    dom, stl, case.bc.ghost_b * npb + case.bc.ghost_w,
+                    case.bc.normals, device)
+            if cutcell:
+                cm = cut_metrics_2d(
+                    stl, msh.distance_fields["wall"], dom.centers,
+                    dom.widths, solved_mask, dom.face_dim, dom.face_owner,
+                    dom.face_neighbor, alpha=cc_alpha,
+                    alpha_floor=_ALPHA_FLOOR)
+                case.cut3 = cut3_from_numpy(cm, case.bt, device)
+        else:
+            case.active = torch.as_tensor(solved_mask.astype(np.float32),
+                                          device=device)
+            case.flat_bcs = _flat_bcs(dom, stl, bc_fns, mirror_wall, device)
+            if n_partitions == 1:
+                dom.partitions          # built here, inside build_seconds
+        case.P0 = case.apply_bcs(torch.as_tensor(P0, device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     case.build_seconds = time.perf_counter() - t0
     return case
 

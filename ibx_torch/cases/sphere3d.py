@@ -33,7 +33,8 @@ from ..solve.euler import rk2_step
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.blocks import BlockTables, build_block_tables
 from ..topology.domain import Domain, FusedBoundary, require_device
-from ..utils.graphs import Graphs, march_loop
+from ..utils.graphs import Graphs, at_boundary, march_loop
+from ..utils.monitor import span
 
 FAMILIES = ("farfield", "wall")
 
@@ -167,8 +168,9 @@ class Sphere3dCase:
         to_state, one, to_flat_ = self._march_fns(grid, freeze_gradients,
                                                   fold)
         key = (self.bt is None, grid, freeze_gradients, fold)
-        return to_flat_(march_loop(self._graphs, key, one, to_state(P),
-                                   n_steps, graph))
+        X = march_loop(self._graphs, key, one, at_boundary(to_state, P),
+                       n_steps, graph)
+        return at_boundary(to_flat_, X)
 
 
 def build_sphere3d(
@@ -185,56 +187,64 @@ def build_sphere3d(
     device="cuda",
 ) -> Sphere3dCase:
     """Build the sphere case on ``device`` (the card unless asked
-    otherwise); same parameters as the JAX package's `build_sphere3d`.
+    otherwise); same parameters as the JAX package's `build_sphere3d`
+    (``verbose`` is taken for that signature and prints nothing: the
+    build's stages are host spans, `ibx_torch.utils.monitor`).
     ``use_blocks=False`` takes the generic gather march."""
     device = require_device("build_sphere3d", device)
     t0 = time.perf_counter()
-    stl = merge_points(icosphere(h=surface_h))
-    msh = build_mesh(
-        [-farfield] * 3, [2 * farfield] * 3,
-        ("wall", stl, wall_h),
-        block_size=block_size,
-    )
-    dom = Domain(
-        msh,
-        verbose=verbose,
-        hypercube_families=[(
-            "farfield",
-            [(0, False), (0, True), (1, False), (1, True),
-             (2, False), (2, True)],
-        )],
-        device=device,
-    )
-    inside = points_inside(stl, dom.centers)
+    with span("build.mesh"):
+        stl = merge_points(icosphere(h=surface_h))
+        msh = build_mesh(
+            [-farfield] * 3, [2 * farfield] * 3,
+            ("wall", stl, wall_h),
+            block_size=block_size,
+        )
+    with span("build.domain"):
+        dom = Domain(
+            msh,
+            hypercube_families=[(
+                "farfield",
+                [(0, False), (0, True), (1, False), (1, True),
+                 (2, False), (2, True)],
+            )],
+            device=device,
+        )
+    with span("build.mesh"):
+        inside = points_inside(stl, dom.centers)
 
-    fluid = make_fluid()
-    T_inf, p_inf = 288.15, 101325.0
-    a = float(np.sqrt(1.4 * 283.0 * T_inf))
-    P_inf = np.array([p_inf, T_inf, mach * a, 0.0, 0.0], dtype=np.float32)
-    farfield_bc = flow_bc(fluid, P_inf, device=device)
-    wall_bc = flow_bc(fluid, [p_inf, T_inf, 0.0], normal_flow=True,
-                      device=device)
-    bc_fns = {
-        "farfield": lambda Pi, nrm: apply_flow_bc(farfield_bc, Pi, nrm),
-        "wall": lambda Pi, nrm: apply_flow_bc(wall_bc, Pi, nrm),
-    }
+    with span("build.blocks"):
+        fluid = make_fluid()
+        T_inf, p_inf = 288.15, 101325.0
+        a = float(np.sqrt(1.4 * 283.0 * T_inf))
+        P_inf = np.array([p_inf, T_inf, mach * a, 0.0, 0.0],
+                         dtype=np.float32)
+        farfield_bc = flow_bc(fluid, P_inf, device=device)
+        wall_bc = flow_bc(fluid, [p_inf, T_inf, 0.0], normal_flow=True,
+                          device=device)
+        bc_fns = {
+            "farfield": lambda Pi, nrm: apply_flow_bc(farfield_bc, Pi,
+                                                      nrm),
+            "wall": lambda Pi, nrm: apply_flow_bc(wall_bc, Pi, nrm),
+        }
 
-    active = torch.as_tensor((~inside).astype(np.float32), device=device)
-    case = Sphere3dCase(
-        dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, cfl=cfl,
-        high_order=high_order, bc_fns=bc_fns, bt=None, bc=None,
-        active_cs=None, active3=None, fb=None, active=None, P0=None,
-        build_seconds=0.0)
-    if use_blocks:
-        case.bt, case.bc = tables_from_numpy(
-            build_block_tables(dom), _collect_families(dom, FAMILIES),
-            FAMILIES, device)
-        case.active3 = to_blocks(case.bt, active[:, None])[..., 0]
-        case.active_cs = cs_split(case.bt, case.active3[..., None])
-        case.P0 = case.apply_bcs(_initial_state(P_inf, inside, device))
-    else:
-        _use_gather(case, active, inside)
-    _sync(device)
+        active = torch.as_tensor((~inside).astype(np.float32),
+                                 device=device)
+        case = Sphere3dCase(
+            dom=dom, fluid=fluid, P_inf=P_inf, mach=mach, cfl=cfl,
+            high_order=high_order, bc_fns=bc_fns, bt=None, bc=None,
+            active_cs=None, active3=None, fb=None, active=None, P0=None,
+            build_seconds=0.0)
+        if use_blocks:
+            case.bt, case.bc = tables_from_numpy(
+                build_block_tables(dom), _collect_families(dom, FAMILIES),
+                FAMILIES, device)
+            case.active3 = to_blocks(case.bt, active[:, None])[..., 0]
+            case.active_cs = cs_split(case.bt, case.active3[..., None])
+            case.P0 = case.apply_bcs(_initial_state(P_inf, inside, device))
+        else:
+            _use_gather(case, active, inside)
+        _sync(device)
     case.build_seconds = time.perf_counter() - t0
     return case
 

@@ -92,7 +92,9 @@ def build_wing3d_rans_fas(
     """Build the wing on this rank. Every rank of the initialised process
     group (``n_devices`` of them) calls it; ``device`` is the rank's (the
     card unless the caller asks for the CPU). Same parameters as the JAX
-    package's `build_wing3d_rans_fas`."""
+    package's `build_wing3d_rans_fas`; ``verbose`` is taken for that
+    signature and prints nothing (the build's stages are host spans,
+    `ibx_torch.utils.monitor`)."""
     device = require_device("build_wing3d_rans_fas", device)
     mesh = make_device_mesh(n_devices, device=device)
 
@@ -107,7 +109,6 @@ def build_wing3d_rans_fas(
     )
     dom = Domain(
         msh,
-        verbose=verbose,
         hypercube_families=[(
             "farfield",
             [(0, False), (0, True), (1, False), (1, True),

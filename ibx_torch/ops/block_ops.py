@@ -23,6 +23,7 @@ from ..physics.fluid import (Fluid, primitive2state, speed_of_sound,
                              state2primitive_guarded)
 from ..physics.flux import inviscid_fluxes_hll, viscous_fluxes
 from ..topology.blocks import BlockTables
+from ..utils.monitor import device_span
 from .operators import abs_select, minmod
 
 # the face-array formulation of `face_accumulate`, read once at import as
@@ -315,12 +316,13 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
     out = (Fall.narrow(ax, 1, bs) + sgn * Fall.narrow(ax, 0, bs)) / h
 
     face_cat = cat_fn(fn, [p.shape[-1] for p in parts])
-    cols = interface_corrections(bt, d, face_cat, signed_mask,
-                                 _grid_edge_fetch(bt, parts, d))
-    for s in (0, 1):
-        if cols[s] is not None:
-            blocks, vals = cols[s]
-            _edge(bt, out, d, s).index_add_(0, blocks, vals)
+    with device_span("march.two_to_one", out.device):
+        cols = interface_corrections(bt, d, face_cat, signed_mask,
+                                     _grid_edge_fetch(bt, parts, d))
+        for s in (0, 1):
+            if cols[s] is not None:
+                blocks, vals = cols[s]
+                _edge(bt, out, d, s).index_add_(0, blocks, vals)
     if bt.sp_owner[d].shape[0]:
         out = out + _generic_sparse(bt, d, parts, fn, n_out,
                                     signed_mask).reshape(out.shape)
@@ -460,6 +462,15 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
                                    fix3=fix3, mu_t3=mu_t3, cut3=cut3):
         return euler_rhs_grid_pallas(bt, fluid, P3, high_order=high_order,
                                      with_dt=with_dt, cfl=cfl, fold=fold)
+    with device_span("march.rhs", P3.device):
+        return _euler_rhs_ops(bt, fluid, P3, high_order, with_dt, cfl,
+                              frozen, fix3, viscous, mu_t3, cut3)
+
+
+def _euler_rhs_ops(bt: BlockTables, fluid: Fluid, P3, high_order: bool,
+                   with_dt: bool, cfl: float, frozen, fix3, viscous: bool,
+                   mu_t3, cut3):
+    """The torch-op body of `euler_rhs_grid`."""
     nd = bt.nd
     ncomp = P3.shape[-1]
     grid_shape = P3.shape[:-1]
@@ -632,18 +643,21 @@ def rk2_step_grid(bt: BlockTables, fluid: Fluid, P3, apply_bcs3: Callable,
                                      cut3=cut3)
     if irs_eps > 0.0:
         R0 = smooth_residual_grid(bt, R0, eps=irs_eps, active3=active3)
-    if active3 is not None:
-        dt3 = dt3 * active3
-    dt = dt3[..., None]
-    Q0 = primitive2state(fluid, P3)
-    P1 = apply_bcs3(state2primitive_guarded(fluid, Q0 + dt * R0))
+    with device_span("march.update", P3.device):
+        if active3 is not None:
+            dt3 = dt3 * active3
+        dt = dt3[..., None]
+        Q0 = primitive2state(fluid, P3)
+        P1 = state2primitive_guarded(fluid, Q0 + dt * R0)
+    P1 = apply_bcs3(P1)
     R1 = euler_rhs_grid(bt, fluid, P1, high_order=high_order,
                         frozen=frozen if freeze_gradients else None,
                         fix3=fix3, cut3=cut3, fold=fold)
     if irs_eps > 0.0:
         R1 = smooth_residual_grid(bt, R1, eps=irs_eps, active3=active3)
-    P2 = apply_bcs3(state2primitive_guarded(fluid, Q0 + dt * (R0 + R1) / 2))
-    return P2, R0[..., 0].abs().max()
+    with device_span("march.update", P3.device):
+        P2 = state2primitive_guarded(fluid, Q0 + dt * (R0 + R1) / 2)
+    return apply_bcs3(P2), R0[..., 0].abs().max()
 
 
 def euler_step_grid(bt: BlockTables, fluid: Fluid, P3, apply_bcs3: Callable,
@@ -653,10 +667,12 @@ def euler_step_grid(bt: BlockTables, fluid: Fluid, P3, apply_bcs3: Callable,
     reference's own march recipe, ``test/advection.jl:85-93``)."""
     R, dt3, _ = euler_rhs_grid(bt, fluid, P3, high_order=high_order,
                                with_dt=True, cfl=cfl, fix3=fix3, cut3=cut3)
-    if active3 is not None:
-        dt3 = dt3 * active3
-    Q = primitive2state(fluid, P3) + dt3[..., None] * R
-    return apply_bcs3(state2primitive_guarded(fluid, Q)), R[..., 0].abs().max()
+    with device_span("march.update", P3.device):
+        if active3 is not None:
+            dt3 = dt3 * active3
+        Q = primitive2state(fluid, P3) + dt3[..., None] * R
+        P1 = state2primitive_guarded(fluid, Q)
+    return apply_bcs3(P1), R[..., 0].abs().max()
 
 
 def _flat_bcs(bt: BlockTables, apply_bcs: Callable) -> Callable:

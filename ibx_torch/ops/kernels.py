@@ -8,6 +8,9 @@ launch counters and plain PyTorch versions.
 | `euler_pass_b`      | csrc/euler_pass_b.cu | `_kernel_b`               |
 | `euler_pass_b_fold` | csrc/euler_pass_b.cu | `_kernel_b`, `have_cols`  |
 
+`stamp` (``csrc/stamp.cu``, no counter, no JAX counterpart) writes one
+``(tag, %globaltimer)`` record for `utils.monitor.device_span`.
+
 All grids are float32 ``[B, C, bs, bs*bs]`` (within-block cell index
 w = z*bs^2 + y*bs + x). The kernels are compiled for ``sm_90a`` with
 ``nvcc`` at first use, one process per source in parallel, linked into
@@ -40,7 +43,8 @@ from ..physics.fluid import Fluid
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rk2_update.cu", "euler_pass_a.cu", "euler_pass_b.cu")
+SOURCES = ("rk2_update.cu", "euler_pass_a.cu", "euler_pass_b.cu",
+           "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -127,9 +131,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                                      f, p]
     lib.ibx_euler_pass_a_smem.argtypes = [i, i]
     lib.ibx_euler_pass_b_smem.argtypes = [i, i]
+    lib.ibx_stamp.argtypes = [p, p, ll, ll, p]
     for fn in (lib.ibx_rk2_update, lib.ibx_euler_pass_a,
                lib.ibx_euler_pass_b, lib.ibx_euler_pass_a_smem,
-               lib.ibx_euler_pass_b_smem):
+               lib.ibx_euler_pass_b_smem, lib.ibx_stamp):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -189,6 +194,27 @@ def _stream(device) -> int:
 
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# stamp
+# ---------------------------------------------------------------------------
+
+def stamp(slots: torch.Tensor, head: torch.Tensor, tag: int) -> None:
+    """Write ``(tag, %globaltimer)`` into row ``head`` of ``slots`` (int64
+    ``[capacity, 2]`` on the card) and advance ``head`` (int64 ``[1]``) by
+    one, atomically, on the current stream; a head at or past the capacity
+    writes nothing. Not counted in `launches`."""
+    dev = slots.device
+    if dev.type != "cuda" or head.device != dev:
+        raise ValueError(f"stamp writes a ring on a card, got {dev}")
+    if slots.dtype != torch.int64 or slots.dim() != 2 \
+            or slots.shape[1] != 2 or not slots.is_contiguous() \
+            or head.dtype != torch.int64 or head.numel() != 1:
+        raise ValueError("stamp needs contiguous int64 slots [n, 2] and an "
+                         "int64 head [1]")
+    _raise_on(build().ibx_stamp(_ptr(slots), _ptr(head), slots.shape[0],
+                                int(tag), _stream(dev)), "stamp")
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch
 
 from ..physics.fluid import Fluid, speed_of_sound
 from ..topology.blocks import BlockTables
+from ..utils.monitor import device_span
 from . import block_ops as bo
 from .kernels import (STENCIL_BLOCK_SIZES, euler_pass_a, euler_pass_b,
                       rk2_update)
@@ -173,26 +174,29 @@ def gradients_cs(bt: BlockTables, fluid: Fluid, Pc, *, with_dt: bool,
     face_A = bo.cat_fn(bo.face_a(with_dt), [ncomp, 1] if with_dt else [ncomp])
 
     signedA = [1.0] * (ncomp + 1) + [0.0] * (2 if with_dt else 1)
-    for d in range(nd):
-        if not _has_ifc(bt, d):
-            continue
-        if with_dt:
-            def extraA(pp, d=d):
-                Sd = pp[..., 2 + d].abs() + speed_of_sound(fluid, pp[..., 1])
-                return torch.cat([pp, Sd[..., None]], dim=-1)
-        else:
-            extraA = None
-        cols = bo.interface_corrections(
-            bt, d, face_A, signedA, _cs_edge_fetch(bt, [Pc], d, extraA))
-        # cols channels: [du(5), G, U (, sf)] -> kernel-A outputs
-        if fold:
-            fold_cols += [c[1][..., 0:5] for c in cols if c is not None]
-        else:
-            _cols_add_cs(bt, du_cs, cols, d, d * 5, (d + 1) * 5, 0)
-        _cols_add_cs(bt, aux, cols, d, d, d + 1, 5)
-        _cols_add_cs(bt, aux, cols, d, nd + d, nd + d + 1, 6)
-        if with_dt:
-            _cols_add_cs(bt, aux, cols, d, 2 * nd + d, 2 * nd + d + 1, 7)
+    with device_span("march.two_to_one", Pc.device):
+        for d in range(nd):
+            if not _has_ifc(bt, d):
+                continue
+            if with_dt:
+                def extraA(pp, d=d):
+                    Sd = pp[..., 2 + d].abs() + speed_of_sound(fluid,
+                                                               pp[..., 1])
+                    return torch.cat([pp, Sd[..., None]], dim=-1)
+            else:
+                extraA = None
+            cols = bo.interface_corrections(
+                bt, d, face_A, signedA, _cs_edge_fetch(bt, [Pc], d, extraA))
+            # cols channels: [du(5), G, U (, sf)] -> kernel-A outputs
+            if fold:
+                fold_cols += [c[1][..., 0:5] for c in cols if c is not None]
+            else:
+                _cols_add_cs(bt, du_cs, cols, d, d * 5, (d + 1) * 5, 0)
+            _cols_add_cs(bt, aux, cols, d, d, d + 1, 5)
+            _cols_add_cs(bt, aux, cols, d, nd + d, nd + d + 1, 6)
+            if with_dt:
+                _cols_add_cs(bt, aux, cols, d, 2 * nd + d, 2 * nd + d + 1,
+                             7)
 
     for d in range(nd):
         if not bt.sp_owner[d].shape[0]:
@@ -242,6 +246,14 @@ def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
     (`pallas_eligible` keeps them off it); the sharded block march's
     local grids have them at halo blocks
     (`ibx_torch.parallel.block_sharding`)."""
+    with device_span("march.rhs", Pc.device):
+        return _euler_rhs_cs(bt, fluid, Pc, high_order, with_dt,
+                             with_frozen, fold)
+
+
+def _euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, high_order: bool,
+                  with_dt: bool, with_frozen: bool, fold: bool):
+    """The body of `euler_rhs_cs`."""
     nd, bs = bt.nd, bt.block_size
     ncomp = Pc.shape[1]
     fold = fold and not with_frozen and not bt.n_sparse
@@ -260,18 +272,21 @@ def euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, *,
         idx = torch.where(rows >= 0, rows, vals.shape[0] - 1)
 
     # 2:1 interface corrections for pass B
-    for d in range(nd):
-        if not _has_ifc(bt, d):
-            continue
-        if cols6 is not None:
-            du_fix = [None, (idx[:, 2 * d:2 * d + 2], vals), None]
-        fetchB = _cs_edge_fetch(
-            bt, [Pc, du_cs, nu_cs], d,
-            channel_slice=[None, (d * 5, (d + 1) * 5), None],
-            plane_fix=du_fix)
-        face_B = bo.cat_fn(bo.face_b(fluid, high_order, d), [ncomp, 5, 1])
-        cols = bo.interface_corrections(bt, d, face_B, [1.0] * ncomp, fetchB)
-        _cols_add_cs(bt, Rc, cols, d, 0, ncomp)
+    with device_span("march.two_to_one", Pc.device):
+        for d in range(nd):
+            if not _has_ifc(bt, d):
+                continue
+            if cols6 is not None:
+                du_fix = [None, (idx[:, 2 * d:2 * d + 2], vals), None]
+            fetchB = _cs_edge_fetch(
+                bt, [Pc, du_cs, nu_cs], d,
+                channel_slice=[None, (d * 5, (d + 1) * 5), None],
+                plane_fix=du_fix)
+            face_B = bo.cat_fn(bo.face_b(fluid, high_order, d),
+                               [ncomp, 5, 1])
+            cols = bo.interface_corrections(bt, d, face_B, [1.0] * ncomp,
+                                            fetchB)
+            _cols_add_cs(bt, Rc, cols, d, 0, ncomp)
     for d in range(nd):
         if not bt.sp_owner[d].shape[0]:
             continue
@@ -323,8 +338,12 @@ def rk2_step_cs(bt: BlockTables, fluid: Fluid, Pc, apply_bcs_cs: Callable,
     resnorm)."""
     R0, dtb = euler_rhs_cs(bt, fluid, Pc, high_order=high_order,
                            with_dt=True, fold=fold)
-    P1 = apply_bcs_cs(rk2_update(fluid, Pc, R0, None, dtb, active_cs, cfl))
+    with device_span("march.update", Pc.device):
+        P1 = rk2_update(fluid, Pc, R0, None, dtb, active_cs, cfl)
+    P1 = apply_bcs_cs(P1)
     R1 = euler_rhs_cs(bt, fluid, P1, high_order=high_order, fold=fold)
-    P2 = apply_bcs_cs(rk2_update(fluid, Pc, R0, R1, dtb, active_cs, cfl))
+    with device_span("march.update", Pc.device):
+        P2 = rk2_update(fluid, Pc, R0, R1, dtb, active_cs, cfl)
+    P2 = apply_bcs_cs(P2)
     resnorm = R0[:, 0].abs().max()
     return P2, resnorm

@@ -49,7 +49,10 @@ class _Level:
         self.ratio = torch.zeros((), **scalar)
         self.pred = torch.zeros((), dtype=torch.bool, device=dev)
         out.append(self)
-        head = [Piece(self._head)]
+        # the pieces' device spans and the loop's counters are named
+        # fas.L<level>.*
+        name = f"fas.L{level}"
+        head = [Piece(self._head, name=name + ".head", device=dev)]
         self.child = None
         # the reference's convention: the last coarsener in the list is
         # never recursed into (``src/solver.jl:60-77``)
@@ -58,8 +61,11 @@ class _Level:
             self.child = _Level(f, level + 1, dev, coarseners[1:],
                                 prolongators[1:], True, n_iter, rtol, atol,
                                 out)
-            head += [self.child.loop, Piece(self._tail)]
-        self.loop = GraphedLoop(head, [Piece(self._body)], self.pred, n_iter)
+            head += [self.child.loop,
+                     Piece(self._tail, name=name + ".tail", device=dev)]
+        self.loop = GraphedLoop(
+            head, [Piece(self._body, name=name + ".body", device=dev)],
+            self.pred, n_iter, name=name)
 
     def put(self, name, value):
         b = self.buf.get(name)

@@ -27,6 +27,7 @@ from ..physics.fluid import (Fluid, physicality_guard,
                              primitive2state, state2primitive)
 from ..topology.domain import Domain
 from ..utils.graphs import Graphs, use_graph
+from ..utils.monitor import span
 from .euler import euler_rhs, local_timestep, rk2_step
 from .fas import FasCycle
 from .multigrid_domain import multigrid
@@ -69,22 +70,23 @@ class FasEuler:
         self.high_order = high_order
         assert smoother in ("euler", "rk2")
         self.smoother = smoother
-        hier = multigrid(dom, max_levels)
-        self.domains: List[Domain] = [dom] + list(hier.coarse_domains)
-        self.coarseners = list(hier.coarseners)
-        self.prolongators = list(hier.prolongators)
-        self.bcs = [make_bcs(d) for d in self.domains]
         # the cycles (`fas.FasCycle`) captured on a CUDA state: one an
         # arm, for its last n_iter and rtol
         self._graphs = Graphs()
-        self.active = []
-        for d in self.domains:
-            if inside_fn is None:
-                self.active.append(None)
-            else:
-                self.active.append(torch.as_tensor(
-                    (~inside_fn(d.centers)).astype(np.float32),
-                    device=d.device))
+        with span("build.levels"):
+            hier = multigrid(dom, max_levels)
+            self.domains: List[Domain] = [dom] + list(hier.coarse_domains)
+            self.coarseners = list(hier.coarseners)
+            self.prolongators = list(hier.prolongators)
+            self.bcs = [make_bcs(d) for d in self.domains]
+            self.active = []
+            for d in self.domains:
+                if inside_fn is None:
+                    self.active.append(None)
+                else:
+                    self.active.append(torch.as_tensor(
+                        (~inside_fn(d.centers)).astype(np.float32),
+                        device=d.device))
 
     def _f(self, level, Q):
         d = self.domains[level]

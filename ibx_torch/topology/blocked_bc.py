@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.monitor import device_span
 from .domain import blend_families, mirror_families
 
 
@@ -148,8 +149,9 @@ class GhostBC:
         ghost rows. Every read happens before the one write."""
         B, C = Pc.shape[:2]
         view = Pc.view(B, C, -1)
-        view[self.ghost_b, :, self.ghost_w] = self._ghost_values(
-            lambda b, w: view[b, :, w], fns, guard)
+        with device_span("march.ghost_bc", Pc.device):
+            view[self.ghost_b, :, self.ghost_w] = self._ghost_values(
+                lambda b, w: view[b, :, w], fns, guard)
         return Pc
 
     def apply_grid(self, P3, fns: Dict[str, Callable], *,
@@ -162,8 +164,9 @@ class GhostBC:
         ``mirror_scale`` (f32[G], this table's row order), as
         `FusedBoundary` does."""
         view = P3.view(P3.shape[0], -1, P3.shape[-1])
-        view[self.ghost_b, self.ghost_w] = self._ghost_values(
-            lambda b, w: view[b, w], fns, guard, mirror, mirror_scale)
+        with device_span("march.ghost_bc", P3.device):
+            view[self.ghost_b, self.ghost_w] = self._ghost_values(
+                lambda b, w: view[b, w], fns, guard, mirror, mirror_scale)
         return P3
 
 

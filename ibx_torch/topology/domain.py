@@ -15,7 +15,9 @@ one pass at the end of the build. Index tables are int64 there (see
 The face-accumulation tables of `Domain.partitions` are built at first
 access (``build_timings["partitions"]``): the block marches build their own
 tables from the same faces (`ibx_torch.topology.blocks`) and never read
-them. The executor (`Domain.map`, `Domain.collect`, `Domain.impose_bc`,
+them. Each build stage is also a host span of its name
+(`ibx_torch.utils.monitor`), a child of the span open around the build.
+The executor (`Domain.map`, `Domain.collect`, `Domain.impose_bc`,
 `FusedBoundary`) is functional: each returns new tensors, and a ghost
 write-back is one `index_copy` over unique rows.
 """
@@ -35,6 +37,7 @@ from ..geometry.octree import Mesh, get_cells
 from ..geometry.stereolitography import Stereolitography, centers_and_normals
 from ..ops.operators import Partition
 from ..ops.stencil import Stencil, stencil_from_padded, take_rows
+from ..utils import monitor
 from .faces import hcube_faces, octree2faces_blocks
 from .ghosts import ghosts_and_projections_hcube, ghosts_and_projections_stl
 from .interp import interpolator
@@ -419,7 +422,6 @@ class Domain(DomainExecutionMixin):
         fluid_ghost_ratio: Optional[float] = None,
         reflect_solid_images: bool = False,
         solve_inside_cells: Optional[np.ndarray] = None,
-        verbose: bool = False,
         device="cuda",
     ):
         # ``solve_inside_cells`` (bool[N], cut-cell wall support): in-solid
@@ -431,9 +433,7 @@ class Domain(DomainExecutionMixin):
         self.device = require_device("Domain", device)
         self.mesh = msh
         self.nd = msh.ndim
-        self._verbose = bool(verbose)
-        self._t0 = time.time()
-        self._t_stage = self._t0
+        self._t_stage = time.time_ns()
         # stage name -> elapsed seconds (the reference prints stage banners
         # + wall clock, src/ImmersedBoundary.jl:544-767)
         self.build_timings: Dict[str, float] = {}
@@ -451,7 +451,7 @@ class Domain(DomainExecutionMixin):
             fluid_ghost_ratio=fluid_ghost_ratio,
             reflect_solid_images=reflect_solid_images,
         )
-        self._stage("cells", f"{N} cells")
+        self._stage("cells")
 
         if max_partition_size is not None:
             n_partitions = max(1, -(-N // max_partition_size))
@@ -464,7 +464,7 @@ class Domain(DomainExecutionMixin):
         fo = np.concatenate([fo, ho])
         fn = np.concatenate([fn, hn])
         self.face_dim, self.face_owner, self.face_neighbor = fdim, fo, fn
-        self._stage("faces", f"{fdim.size} faces")
+        self._stage("faces")
 
         # ---- global boundaries & surfaces ------------------------------
         tree = cKDTree(centers)
@@ -480,13 +480,13 @@ class Domain(DomainExecutionMixin):
                 centers, widths, tree, ghosts, projs, ghost_layer_ratio,
                 axis_stencils=True,
             )
-            self._stage(f"boundary[{bname}]", f"{ghosts.size} ghosts")
+            self._stage(f"boundary[{bname}]")
 
         for bname, dfield in msh.distance_fields.items():
             ghosts, projs = ghosts_and_projections_stl(
                 dfield, centers, widths, ghost_layer_ratio=ghost_layer_ratio
             )
-            self._stage(f"ghosts[{bname}]", f"{ghosts.size} ghosts")
+            self._stage(f"ghosts[{bname}]")
             # ban in-solid cells from image stencils (no BC feedback loop
             # through unsolved values at thin geometry)
             inside = None
@@ -498,8 +498,7 @@ class Domain(DomainExecutionMixin):
                 ghosts, projs = ghosts[keep], projs[keep]
                 if inside is not None:
                     inside = inside & ~solve_inside_cells
-                self._stage(f"ghost-solved[{bname}]",
-                            f"{ghosts.size} kept (cut cells solved)")
+                self._stage(f"ghost-solved[{bname}]")
             if fluid_ghost_ratio is not None and inside is not None:
                 # flagged deviation from the reference's unsigned ghost
                 # band (src/ImmersedBoundary.jl:194-230): with the flag,
@@ -512,8 +511,7 @@ class Domain(DomainExecutionMixin):
                 keep = inside[ghosts] | (
                     gd <= fluid_ghost_ratio * diams[ghosts])
                 ghosts, projs = ghosts[keep], projs[keep]
-                self._stage(f"ghost-band[{bname}]",
-                            f"{ghosts.size} kept (solid+{fluid_ghost_ratio}d)")
+                self._stage(f"ghost-band[{bname}]")
             self._host_boundaries[bname] = _build_host_boundary(
                 centers, widths, tree, ghosts, projs, ghost_layer_ratio,
                 exclude_cells=inside, reflect_solid=reflect_solid_images,
@@ -538,11 +536,7 @@ class Domain(DomainExecutionMixin):
                     linear=True)),
                 stl=stl,
             )
-        self._stage(
-            "boundaries",
-            f"{sum(hb.ghosts.size for hb in self._host_boundaries.values())}"
-            " ghosts",
-        )
+        self._stage("boundaries")
 
         # ---- partition cell sets ------------------------------------------
         n_own = -(-N // P)
@@ -595,7 +589,7 @@ class Domain(DomainExecutionMixin):
             self.part_own_mask.append(own_mask)
             self._part_g2l.append(g2l)
 
-        self._stage("partition_sets", f"{P} partitions, n_own={n_own}")
+        self._stage("partition_sets")
 
         # ---- localized boundaries --------------------------------------
         # boundaries[name][p]: per-partition blocks (empty blocks possible)
@@ -625,17 +619,14 @@ class Domain(DomainExecutionMixin):
         self._part_domain_dev = [_i64(d, dev) for d in self.part_domain]
         self._part_own_dev = [_i64(o, dev) for o in self.part_own]
         self._stage("device_put")
-        if self._verbose:
-            print(f"[ibx_torch.Domain] total {time.time() - self._t0:.2f}s")
 
-    def _stage(self, name: str, note: str = "") -> None:
-        """Record (and optionally print) a build-stage wall-clock."""
-        now = time.time()
-        self.build_timings[name] = now - self._t_stage
-        if self._verbose:
-            extra = f" ({note})" if note else ""
-            print(f"[ibx_torch.Domain] {name}: "
-                  f"{self.build_timings[name]:.2f}s{extra}", flush=True)
+    def _stage(self, name: str) -> None:
+        """Record the build stage ``name``, which ends now and began where
+        the last one ended: its seconds in ``build_timings`` and a host
+        span."""
+        now = time.time_ns()
+        self.build_timings[name] = (now - self._t_stage) / 1e9
+        monitor.add_span(name, self._t_stage, now)
         self._t_stage = now
 
     # -- table compilers --------------------------------------------------
@@ -646,17 +637,14 @@ class Domain(DomainExecutionMixin):
         at first access (``build_timings["partitions"]`` holds the
         seconds, the upload included)."""
         if self._partitions is None:
-            t0 = time.time()
+            self._t_stage = time.time_ns()
             self._partitions = [
                 self._build_partition_tables(
                     p, self.part_domain[p], self._part_g2l[p],
                     self.part_own_mask[p], self.centers, self.widths,
                 ).to(self.device)
                 for p in range(self.n_partitions)]
-            self.build_timings["partitions"] = time.time() - t0
-            if self._verbose:
-                print(f"[ibx_torch.Domain] partitions: "
-                      f"{self.build_timings['partitions']:.2f}s", flush=True)
+            self._stage("partitions")
         return self._partitions
 
     def partition(self, p: int) -> Partition:

@@ -37,6 +37,17 @@ once before each body, as the eager loop does; the body count is the
 data's. A tensor that one piece hands to the next lives in a static
 buffer or was made by an earlier piece of the same run, so a graph may
 reuse the memory of another's intermediates whatever the body count.
+
+Under `monitor.tracing` the captures carry the program's spans: a captured
+step's first and last nodes stamp ``march.step``, a named piece's stamp its
+name, and the copies in and out of the static buffers are
+``march.boundary`` spans on the host and the device. A capture bakes its
+stamps in, so `Graphs` keeps the graphs captured while recording under
+keys of their own, in the same pool: with recording off the graphs
+captured are those of a program without spans, node for node. Each replay
+counts ``graph.replays``; a named loop counts its stop-rule reads
+(``<family>.stop_reads``, each read a ``<family>.stop_read`` host span) and
+its bodies (``<family>.bodies.<level>``).
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 import torch
 
 from ..ops import kernels
+from . import monitor
 
 
 def _as_tuple(X) -> Tuple[torch.Tensor, ...]:
@@ -59,6 +71,23 @@ def _clone(r):
     if isinstance(r, (tuple, list)):
         return tuple(_clone(x) for x in r)
     return r.clone()
+
+
+def _replayed(launches: Dict[str, int]) -> None:
+    """Count one replay: the captured kernel launches into
+    `kernels.launches` (as the eager run would have counted them) and one
+    ``graph.replays``."""
+    for k, v in launches.items():
+        kernels.launches[k] += v
+    monitor.count("graph.replays")
+
+
+def at_boundary(fn: Callable, X):
+    """``fn(X)``, a march's conversion of its state at the edge of the
+    captured steps, inside the ``march.boundary`` spans."""
+    with monitor.span("march.boundary"), \
+            monitor.device_span("march.boundary", _as_tuple(X)[0]):
+        return fn(X)
 
 
 def use_graph(graph: Optional[bool], X, mesh=None) -> bool:
@@ -104,9 +133,10 @@ class GraphedStep:
         before = dict(kernels.launches)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool):
-            out, self.res = step(arg)
-            for s, o in zip(self.static, _as_tuple(out)):
-                s.copy_(o)
+            with monitor.device_span("march.step", dev):
+                out, self.res = step(arg)
+                for s, o in zip(self.static, _as_tuple(out)):
+                    s.copy_(o)
         self.launches = {k: kernels.launches[k] - n
                          for k, n in before.items()}
         kernels.launches.update(before)   # capture launched nothing
@@ -123,13 +153,18 @@ class GraphedStep:
                 for x, s in zip(xs, self.static)):
             raise ValueError("the state's shapes differ from the captured "
                              "step's")
-        for s, x in zip(self.static, xs):
-            s.copy_(x)
+        at_boundary(self._copy_in, xs)
         for _ in range(n):
             self.graph.replay()
-            for k, v in self.launches.items():
-                kernels.launches[k] += v
-        return self._arg(tuple(s.clone() for s in self.static))
+            _replayed(self.launches)
+        return at_boundary(self._copy_out, self.static)
+
+    def _copy_in(self, xs) -> None:
+        for s, x in zip(self.static, xs):
+            s.copy_(x)
+
+    def _copy_out(self, xs):
+        return self._arg(tuple(s.clone() for s in xs))
 
     def call(self, X):
         """One replay from ``X``: ``(X', res)`` as the step returns them
@@ -139,16 +174,26 @@ class GraphedStep:
 
 class Piece:
     """A function of no argument that reads and writes tensors which
-    outlive it: called as it is until `capture`, then one replay a
-    call."""
+    outlive it: called as it is until `capture`, then one replay a call.
+    A piece with a ``name`` runs inside a device span of that name on
+    ``device`` (in a capture: its first and last nodes)."""
 
-    def __init__(self, fn: Callable[[], None], generators: Sequence = ()):
+    def __init__(self, fn: Callable[[], None], generators: Sequence = (),
+                 name: Optional[str] = None, device=None):
         self.fn = fn
         # the `torch.Generator`s other than the default that ``fn`` draws
         # from: a replay draws where the generator stands and advances it
         self.generators = tuple(generators)
+        self.name, self.device = name, device
         self.graph = None
         self.launches: Dict[str, int] = {}
+
+    def _run(self) -> None:
+        if self.name is None:
+            self.fn()
+            return
+        with monitor.device_span(self.name, self.device):
+            self.fn()
 
     def capture(self, pool) -> None:
         graph = torch.cuda.CUDAGraph()
@@ -156,7 +201,7 @@ class Piece:
             graph.register_generator_state(g)
         before = dict(kernels.launches)
         with torch.cuda.graph(graph, pool=pool):
-            self.fn()
+            self._run()
         self.launches = {k: kernels.launches[k] - n
                          for k, n in before.items()}
         kernels.launches.update(before)   # capture launched nothing
@@ -164,11 +209,10 @@ class Piece:
 
     def __call__(self) -> None:
         if self.graph is None:
-            self.fn()
+            self._run()
             return
         self.graph.replay()
-        for k, v in self.launches.items():
-            kernels.launches[k] += v
+        _replayed(self.launches)
 
 
 class GraphedLoop:
@@ -178,25 +222,45 @@ class GraphedLoop:
     predicate read on the host once before each body. ``head`` and
     ``tail`` hold `Piece`s and nested loops (a FAS level's coarse
     recursion), run in order. ``iterations`` is the last run's body
-    count."""
+    count. A loop named ``<family>.<level>`` (``fas.L0``) records each
+    predicate read as a ``<family>.stop_read`` span and counts the reads
+    (``<family>.stop_reads``) and its bodies
+    (``<family>.bodies.<level>``)."""
 
     def __init__(self, head: Sequence, bodies: Sequence[Piece],
                  pred: torch.Tensor, n_iter: int, tail: Sequence = (),
-                 select: Optional[Callable[[int], int]] = None):
+                 select: Optional[Callable[[int], int]] = None,
+                 name: Optional[str] = None):
         self.head, self.bodies, self.tail = tuple(head), tuple(bodies), \
             tuple(tail)
         self.pred, self.n_iter = pred, n_iter
         self.select = select or (lambda it: 0)
         self.iterations = 0
+        self.name = name
+        if name is not None:
+            family, _, level = name.partition(".")
+            self._read = family + ".stop_read"
+            self._bodies = f"{family}.bodies.{level}"
+
+    def _holds(self) -> bool:
+        """The stop rule's predicate, read on the host."""
+        if self.name is None:
+            return bool(self.pred)
+        with monitor.span(self._read):
+            holds = bool(self.pred)
+        monitor.count(self._read + "s")
+        return holds
 
     def __call__(self) -> int:
         for item in self.head:
             item()
         it = 0
-        while it < self.n_iter and bool(self.pred):
+        while it < self.n_iter and self._holds():
             self.bodies[self.select(it)]()
             it += 1
         self.iterations = it
+        if self.name is not None:
+            monitor.count(self._bodies, it)
         for item in self.tail:
             item()
         return it
@@ -244,7 +308,9 @@ class Graphs:
 
     def get(self, key: Hashable, step: Callable, X) -> GraphedStep:
         """The captured step of variant ``key`` (captured from ``X`` at
-        its first use)."""
+        its first use; while recording, a traced capture of its own)."""
+        if monitor.recording():
+            key = ("traced", key)
         g = self.steps.get(key)
         if g is None:
             g = GraphedStep(step, X, pool=self._pool)
@@ -260,7 +326,10 @@ class Graphs:
         call of the slot with another key captures its own (into the same
         pool, whose free memory it reuses) and drops it; else built anew,
         to run eagerly. ``last`` is the loop returned last (its
-        ``iterations`` are the last run's)."""
+        ``iterations`` are the last run's). While recording the slot is
+        a traced one of its own."""
+        if monitor.recording():
+            slot = ("traced", slot)
         held = self.loops.get(slot) if captured else None
         if held is not None and held[0] == key:
             lp = held[1]
@@ -285,7 +354,8 @@ def march_loop(graphs: Graphs, key: Hashable, step: Callable, X, n: int,
     if use_graph(graph, X, mesh) and n > 0:
         return graphs.get(key, step, X).run(X, n)
     for _ in range(n):
-        X, _ = step(X)
+        with monitor.device_span("march.step", _as_tuple(X)[0]):
+            X, _ = step(X)
     return X
 
 
