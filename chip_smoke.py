@@ -43,19 +43,23 @@ ends the run with a non-zero exit:
      march;
   8. 2D step parity: `build_rae2822(wall_h=8e-2, feature_h=4e-2, cfl=0.7)`
      on the card and on the CPU, one step from a perturbed state (plain,
-     with `te_fix_radius=0.3`, with `irs_eps=0.5`); the same torch ops run
-     on both devices, and no kernel may be launched;
+     with `te_fix_radius=0.3`, with `irs_eps=0.5`): the card runs the 2D
+     passes A and B (twice each a step; none with `te_fix_radius`, whose
+     blend keeps the torch-op body), the CPU their plain versions; then
+     phase 35 on this mesh;
   9. 2D main path at full width: `build_rae2822(wall_h=5e-4,
      feature_h=2.5e-4, cfl=0.7, block_size=16)` on the card (881,152
-     cells), restarted from the converged state of
-     tests/data/rae2822_cp_flagship.npz, 2 warm-up steps, then two windows
-     of 500 steps of `case.march` timed with CUDA events and the host
-     clock; all four kernel counters must stay 0 (the 2D arm has no kernel
-     in either package), Cl must lie in the committed band and the
-     windows' mean wall Cp must reproduce the oracle's phase mean;
- 10. 2D breakdown: the parts of one step (CUDA events and the host's
-     enqueue time over 20 calls each) and the card's busy share of a
-     5-step window from `torch.profiler`;
+     cells): phase 35 on its tables, then, restarted from the converged
+     state of tests/data/rae2822_cp_flagship.npz, 2 warm-up steps, then
+     two windows of 500 steps of `case.march` timed with CUDA events and
+     the host clock; the 2D passes A and B must have run twice each a step
+     and no 3D kernel, Cl must lie in the committed band and the windows'
+     mean wall Cp must reproduce the oracle's phase mean;
+ 10. 2D breakdown: the 2D kernels' rows of phase 7 (time, plain time,
+     bound, registers, spills, shared memory) at the flagship's shapes,
+     the parts of one step (CUDA events and the host's enqueue time over
+     20 calls each) and the card's busy share of a 5-step window from
+     `torch.profiler`;
  11. gather step parity: `build_rae2822(wall_h=8e-2, feature_h=4e-2,
      cfl=0.7, use_blocks=False)` on the card and on the CPU, one
      `case.step` of the generic gather march (`solve.euler.rk2_step` on
@@ -132,14 +136,16 @@ ends the run with a non-zero exit:
      (tests/test_point_implicit_euler.py), ms a step captured (eager
      beside, from the step's phase-30 row, run first), then the step's
      phase-30 row with the default generator, whose capture replaces the
-     first on the tables; the four kernel counters stay 0 over phases
-     21-23;
+     first on the tables; no 3D kernel runs over phases 21-23, and the
+     2D passes A and B once a `newton_map` (its explicit bound at Q_n,
+     on the kernel route) and none in the differentiated residual;
  24. the multi-device runtime on four ranks (after phase 23): four gloo
      ranks spawned on the one card (NCCL refuses two ranks on one device),
      each with its own process: `build_rae2822_block_sharded(4)` at
      wall_h=4e-2, 5 steps against the single-device block march on the
      card, plain and with `overlap=True` (2e-5 per channel, resnorm 1e-3,
-     no kernel launched); `build_rae2822_sharded(4)` 3 steps against its
+     the 2D passes twice a step on each local table the gate admits, no
+     3D kernel); `build_rae2822_sharded(4)` 3 steps against its
      step on one partition (1e-5); `build_sphere3d_block_sharded(4)`
      (wall_h=0.1, bs=8) on the channel-split march, 1 step (1e-4) and 5
      steps (1e-3) against the single-device march, each rank launching
@@ -150,8 +156,10 @@ ends the run with a non-zero exit:
  25. the flagship on one rank (in phase 10's place, NCCL, this process):
      `build_rae2822_block_sharded(1, case=<phase 9's case>, overlap=True)`
      from the oracle's state, 2 warm-up steps (the first captures) and
-     100 timed, Cl in the band, no kernel launched, ms a step, peak memory
-     and the card's busy time beside phases 9 and 10;
+     100 timed, Cl in the band, the 2D passes twice each a step where the
+     gate admits the rank's local tables (one rank has no sparse
+     leftover), ms a step, peak memory and the card's busy time beside
+     phases 9 and 10;
  26. the production sphere on one rank (after phase 7, NCCL, this
      process): `build_sphere3d_block_sharded(1, case=<phase 5's case>)`,
      2 warm-up steps (the first captures) and 20 timed, launching 2/2/2
@@ -178,7 +186,8 @@ ends the run with a non-zero exit:
      `build_rae2822(cutcell=True)` at wall_h=8e-2, one step card vs CPU
      (1e-4); the 881,152-cell flagship with `cutcell=True`, 50 steps from
      the freestream: finite, ms a step, the card's busy time, build s;
-     the four kernel counters stay 0 over phases 27-29;
+     the mirrored wall's step runs the 2D passes twice each, the cut-cell
+     wall (the torch-op body) none, and no 3D kernel runs in phases 27-29;
  30. the compiled march against the eager loop, on the full-width cases
      of the phases above (the sphere after phase 26: channel-split, grid
      with and without the fold, grid with frozen gradients; its gather
@@ -194,7 +203,8 @@ ends the run with a non-zero exit:
      a step by the counters and by the kernels' names in a
      `torch.profiler` trace of one replay, equal to eager's (3D
      channel-split 2/2/2, sharded too, grid with the fold pass A 2, pass
-     B 1, fold 1; every 2D, RANS and wing march 0); ms a step and the
+     B 1, fold 1; the 2D block marches the 2D passes 2/2, `march_robust`
+     and every RANS and wing march 0); ms a step and the
      card's busy ms a step each way; peak memory each way and the memory
      the captured step keeps; and the solver calls (in phases 22,
      23 and 31, before their first captured call: `FasEuler.cycle` and
@@ -203,7 +213,8 @@ ends the run with a non-zero exit:
      generator and with the default one, and at nd = 3 on the bs=8
      sphere): 2 captured calls against 2 eager ones, bit-equal in
      state and ratio, the same iterations on every level, launches a call
-     (passes A and B once at nd = 3, 0 elsewhere) by counter and by name
+     (passes A and B once at nd = 3, the 2D passes once at nd = 2, 0 in
+     FAS) by counter and by name
      in a trace of the first call, ms a call (events over the calls after
      the first; 3 more calls each way on the FAS rows) and busy ms, the
      capture's seconds and what it keeps;
@@ -217,7 +228,8 @@ ends the run with a non-zero exit:
  32. the padded formulation of `face_accumulate` against concat
      (`block_ops._PADDED_FACES`), eager: bit-equal over 3 steps and the
      card's busy ms a step of each, traced in turns, on the flagship's
-     block march (after phase 30 there) and on the sphere's grid march
+     `march_robust` (after phase 30 there; its blend keeps the torch-op
+     body, which the 2D kernel route leaves) and on the sphere's grid march
      with the fold and with frozen gradients (after phase 30 there);
  33. the bench (after phase 16, before phase 5's sphere is freed): the
      legs of `python -m ibx_torch.bench` at its defaults through its
@@ -236,6 +248,12 @@ ends the run with a non-zero exit:
      untraced graph, the same march's launches by name unchanged off, and
      a stamp kernel's start in a `torch.profiler` trace within 50 us of
      its stamp on the host clock;
+ 35. the 2D kernels against their plain versions on the same CUDA tensors
+     (inside phases 8 and 9): pass A with and without dt, pass B in both
+     `high_order` under the flow's sensor and a random one, with the 2:1
+     corrections of the route's glue, on the wall_h=8e-2 flagship and on
+     the full 881,152-cell tables (2:1 rows on both sides of both dims);
+     and the kernel route against the torch-op body on the card;
 then one JSON line of per-kernel numbers (with each kernel's launches a
 step on the sharded channel-split march), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -388,6 +406,39 @@ def pass_b_flops(bs):
     return 3 * (281 + 281 / bs + 25)
 
 
+# the 2D passes, counted as the kernels run them: pass A evaluates each of
+# a cell's four faces itself (32 operations a face with the dt bound, 23
+# without), differences them (14, 12 a dim), takes the sound speed (3),
+# the sensor (10) and dt (2); pass B evaluates each face once, 2 + 2/bs a
+# cell of about 230 (MUSCL and blend 37 a channel, HLL sides 18, flux 42),
+# masks it (4) and differences and sums them (20 a cell)
+FLOPS_PER_CELL.update(euler_pass_a_2d_dt=2 * (2 * 32 + 14) + 15,
+                      euler_pass_a_2d=2 * (2 * 23 + 12) + 10)
+
+
+def pass_b_2d_flops(bs):
+    return (2 + 2 / bs) * (230 + 4) + 20
+
+
+# launches a step of the 2D block march on the kernel route
+STEP2D = dict(euler_pass_a_2d=2, euler_pass_b_2d=2)
+
+
+def counts(n=1, **per_step):
+    """The whole launch-counter dict: ``n`` times ``per_step``'s counts,
+    and 0 for every other kernel."""
+    from ibx_torch.ops import kernels as K
+
+    unknown = set(per_step) - set(K.launches)
+    assert not unknown, unknown
+    return {k: n * per_step.get(k, 0) for k in K.launches}
+
+
+def no_3d(launches):
+    """Whether none of the 3D kernels was counted."""
+    return not any(v for k, v in launches.items() if not k.endswith("_2d"))
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -538,6 +589,24 @@ def time_ms(fn, reps=20):
     return time_both(fn, reps)[0]
 
 
+def device_ms(fn, reps=20):
+    """Mean device ms of ``fn`` over ``reps`` calls enqueued behind a sleep
+    kernel, so that the host's launch path (a wrapper's checks and
+    allocations, tens of us a call) does not set the pace of a kernel
+    shorter than it, as it does in `time_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def bound(n_cells, channels, flops_per_cell, n_blocks, extra_bytes=0):
     """Least time for the work: each input and output byte moved once (the
     per-block tables and ``extra_bytes`` of other operands included) at the
@@ -560,7 +629,8 @@ def kernel_resources():
     for line in K.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"((?:euler_pass_[ab]|rk2_update|stamp)_kernel)"
+            k = re.search(r"((?:euler_pass_[ab](?:_2d)?|rk2_update|stamp)"
+                          r"_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
             args = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
             name = k.group(1) + ("<" + ", ".join(
@@ -621,23 +691,172 @@ def profile_busy(fn, n_steps, tag, ms_step):
     return len(ev) / n_steps, busy_ms / n_steps, wall_ms / n_steps
 
 
+def chan_err_last(ref, out):
+    """`chan_err` of a channel-last grid [B, bs, bs, C] (or [B, bs, bs]:
+    one channel)."""
+    if ref.dim() == 3:
+        return chan_err(ref[:, None], out[:, None])
+    return chan_err(ref.movedim(-1, 1), out.movedim(-1, 1))
+
+
+def kernel2d_parity(case, P3, label):
+    """Phase 35 on one mesh: each 2D kernel against its plain version on
+    the same CUDA tensors, with the 2:1 corrections of the route's glue;
+    then the kernel route against the torch-op body. Returns the max abs
+    error of each kernel's reported variant (pass A with dt, pass B
+    high-order under the flow's sensor)."""
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.block_ops import euler_rhs_grid
+    from ibx_torch.ops.rhs_cs import corrections_a_2d, corrections_b_2d
+
+    bt, fl = case.bt, case.fluid
+    sides = interface_sides(bt)
+    log(f"[parity2d] {label}: {bt.n_blocks} blocks, bs={bt.block_size}, "
+        f"2:1 interface rows per (d, s) side {sides}")
+    assert min(sides) > 0, sides
+    errs = {}
+    tabs = (bt.meta, bt.nbr_table, bt.fold_rows)
+    for with_dt in (True, False):
+        vals = corrections_a_2d(bt, fl, P3, with_dt=with_dt)
+        out = K.euler_pass_a_2d(fl, P3, *tabs, vals, with_dt=with_dt,
+                                cfl=case.cfl)
+        ref = K.euler_pass_a_2d_ref(fl, P3, *tabs, vals, with_dt=with_dt,
+                                    cfl=case.cfl)
+        for i, name in enumerate(("du_x", "du_y", "nu", "dt")):
+            if name == "dt" and not with_dt:
+                continue
+            check(f"euler_pass_a_2d {name} (with_dt={with_dt})",
+                  chan_err_last(ref[i], out[i]),
+                  TOL["du"] if name.startswith("du") else TOL["aux"])
+        if with_dt:
+            errs["euler_pass_a_2d"] = max(max_abs(r, o)
+                                          for r, o in zip(ref, out))
+            du_x, du_y, nu, _ = ref
+    # pass B under the flow's sensor and under one of 10^U(-7, 0) (as
+    # tests/test_torch_kernels.py): the flow's own is 1 on most faces, and
+    # the JST blend then hides the high-order face value
+    rng = np.random.default_rng(7)
+    nu_r = torch.as_tensor((10.0 ** rng.uniform(-7, 0, tuple(nu.shape)))
+                           .astype(np.float32), device=P3.device)
+    for ho in (True, False):
+        vals = corrections_b_2d(bt, fl, P3, [du_x, du_y], nu[..., None],
+                                high_order=ho)
+        for sensor, n_ in (("flow", nu), ("random", nu_r)):
+            R = K.euler_pass_b_2d(fl, P3, du_x, du_y, n_, *tabs, vals,
+                                  high_order=ho)
+            R_r = K.euler_pass_b_2d_ref(fl, P3, du_x, du_y, n_, *tabs, vals,
+                                        high_order=ho)
+            check(f"euler_pass_b_2d R (high_order={ho}, {sensor} sensor)",
+                  chan_err_last(R_r, R), TOL["R"])
+            if ho and sensor == "flow":
+                errs["euler_pass_b_2d"] = max_abs(R_r, R)
+    for with_dt in (True, False):
+        kern = euler_rhs_grid(bt, fl, P3, with_dt=with_dt, cfl=case.cfl)
+        body = euler_rhs_grid(bt, fl, P3, with_dt=with_dt, cfl=case.cfl,
+                              kernels=False)
+        if with_dt:
+            check("euler_rhs_grid dt, kernel route vs torch-op body "
+                  "(relative)", chan_err_last(body[1], kern[1]), TOL["aux"])
+            kern, body = kern[0], body[0]
+        check(f"euler_rhs_grid R, kernel route vs torch-op body "
+              f"(with_dt={with_dt})", chan_err_last(body, kern), TOL["R"])
+    return errs
+
+
+def kernel2d_rows(case, P3, launches, errs):
+    """Phase 7's rows for the 2D kernels at the flagship's shapes: device
+    time (CUDA events over 20 launches queued behind a sleep, `device_ms`;
+    back to back, `time_ms`, beside it), the plain version's time, the
+    bound, registers, spills and shared memory. ``launches``: each
+    kernel's launches a step on the flagship's march."""
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.rhs_cs import corrections_a_2d, corrections_b_2d
+
+    bt, fl = case.bt, case.fluid
+    n_cells, n_blocks, bs = case.dom.ncells, bt.n_blocks, bt.block_size
+    tabs = (bt.meta, bt.nbr_table, bt.fold_rows)
+    P3 = P3.contiguous()    # the kernels' layout (the march may hold another)
+    va = {dt: corrections_a_2d(bt, fl, P3, with_dt=dt) for dt in (True,
+                                                                  False)}
+    du_x, du_y, nu, _ = K.euler_pass_a_2d(fl, P3, *tabs, va[True],
+                                          with_dt=True, cfl=case.cfl)
+    vb = corrections_b_2d(bt, fl, P3, [du_x, du_y], nu[..., None],
+                          high_order=True)
+
+    def pass_a(dt, plain=False):
+        fn = K.euler_pass_a_2d_ref if plain else K.euler_pass_a_2d
+        return lambda: fn(fl, P3, *tabs, va[dt], with_dt=dt, cfl=case.cfl)
+
+    def pass_b(plain=False):
+        fn = K.euler_pass_b_2d_ref if plain else K.euler_pass_b_2d
+        return lambda: fn(fl, P3, du_x, du_y, nu, *tabs, vb,
+                          high_order=True)
+
+    # bytes: the rows and their compact corrections besides the grids
+    rows_b = 4 * bt.fold_rows.numel()
+    variants = {
+        "euler_pass_a_2d": ("with_dt", pass_a(True), pass_a(True, True),
+                            14, FLOPS_PER_CELL["euler_pass_a_2d_dt"],
+                            rows_b + 4 * va[True].numel(),
+                            f"euler_pass_a_2d_kernel<{bs}, true>"),
+        "euler_pass_a_2d no dt": ("without dt", pass_a(False), None, 13,
+                                  FLOPS_PER_CELL["euler_pass_a_2d"],
+                                  rows_b + 4 * va[False].numel(),
+                                  f"euler_pass_a_2d_kernel<{bs}, false>"),
+        "euler_pass_b_2d": ("high_order", pass_b(), pass_b(True), 17,
+                            pass_b_2d_flops(bs), rows_b + 4 * vb.numel(),
+                            f"euler_pass_b_2d_kernel<{bs}>"),
+    }
+    res = kernel_resources()
+    rows = []
+    log(f"[kernels2d] {n_cells} cells in {n_blocks} blocks of {bs}^2, CUDA "
+        f"events over 20 launches queued behind a sleep (back to back, the "
+        f"host's launch path included, in brackets); bounds at "
+        f"{PEAK_BYTES_S / 1e12:g} TB/s and {PEAK_F32_FLOP_S / 1e12:g} "
+        f"TFLOP/s f32")
+    for name, (var, fk, fr, ch, fpc, extra, inst) in variants.items():
+        ms = device_ms(fk)
+        host_paced = time_ms(fk)
+        plain = time_ms(fr, reps=5) if fr is not None else None
+        b_ms, b_by = bound(n_cells, ch, fpc, n_blocks, extra)
+        r = res.get(inst, {})
+        log(f"  {name} ({var}): {ms:.4f} ms ({host_paced:.4f}), plain "
+            + (f"{plain:.3f} ms" if plain is not None else "not timed")
+            + f", bound {b_ms:.4f} ms ({b_by}, {ch} channels + {extra} "
+            f"bytes), {b_ms / ms:.1%} of bound, library none; {inst}: "
+            f"{r.get('registers')} registers, spills {r.get('spill')}, "
+            f"{r.get('static_smem')} bytes static smem (no dynamic)")
+        if name in launches:
+            src = name.replace("euler_", "ibx_torch/csrc/euler_") + ".cu"
+            rows.append(dict(name=name, route="cuda", source=src,
+                             replaces="none (torch-op face_accumulate, "
+                                      "nd = 2)",
+                             launches=launches[name],
+                             max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             variant=var, registers=r.get("registers"),
+                             smem_bytes=r.get("static_smem", 0)))
+    return rows
+
+
 def rae2822_phases(root, dev, smi):
-    """Phases 8-10: the 2D arm. It launches no kernel, so it adds no row
-    to the kernels line; its counters are asserted to stay 0."""
+    """Phases 8-10 and 35: the 2D arm. Its march runs the 2D passes A and
+    B (`rhs_cs.euler_rhs_grid_2d`); returns their rows of the kernels line
+    among the block march's numbers."""
     from ibx_torch.cases import (build_rae2822, force_coefficients,
                                  wall_cp)
     from ibx_torch.ops import kernels as K
     from ibx_torch.ops.block_ops import (euler_rhs_grid, to_blocks)
+    from ibx_torch.ops.rhs_cs import pallas_eligible
     from ibx_torch.physics.fluid import (primitive2state,
                                          state2primitive_guarded)
 
-    zero = dict.fromkeys(K.launches, 0)
-
     # 8. 2D step parity, card vs CPU
     small = dict(wall_h=8e-2, feature_h=4e-2, cfl=0.7)
-    for label, kw in (("reference numerics", {}),
-                      ("te_fix_radius=0.3", dict(te_fix_radius=0.3)),
-                      ("irs_eps=0.5", dict(irs_eps=0.5))):
+    for label, kw, want in (("reference numerics", {}, STEP2D),
+                            ("te_fix_radius=0.3", dict(te_fix_radius=0.3),
+                             {}),
+                            ("irs_eps=0.5", dict(irs_eps=0.5), STEP2D)):
         cg = build_rae2822(device=dev, **small, **kw)
         cc = build_rae2822(device="cpu", **small, **kw)
         P = perturbed2d(cg)
@@ -645,11 +864,14 @@ def rae2822_phases(root, dev, smi):
         Pg, rg = cg.step(P)
         Pc, rc = cc.step(P.cpu())
         log(f"[step2d] RAE2822 wall_h=8e-2 ({cg.dom.ncells} cells), one "
-            f"step ({label}), card vs CPU")
+            f"step ({label}), card vs CPU; launches {dict(K.launches)}")
         check("state (per channel)", chan_err(Pc, Pg.cpu()), STEP_TOL)
         check("resnorm (relative)",
               abs(float(rg) - float(rc)) / abs(float(rc)), RES_TOL)
-        assert dict(K.launches) == zero, K.launches
+        assert dict(K.launches) == counts(**want), K.launches
+        if not kw:
+            kernel2d_parity(cg, to_blocks(cg.bt, P),
+                            f"RAE2822 wall_h=8e-2 ({cg.dom.ncells} cells)")
     del cg, cc
 
     # 9. 2D main path at full width
@@ -672,7 +894,10 @@ def rae2822_phases(root, dev, smi):
                     case.dom.build_timings.items()))
     assert n_cells == RAE_CELLS, n_cells
     assert bt.n_sparse == 0 and case.P0.device.type == "cuda"
-    assert bt.meta is None and bt.nbr_table is None
+    assert pallas_eligible(bt)
+    errs2d = kernel2d_parity(case, to_blocks(bt, perturbed2d(case)),
+                             f"the flagship ({n_cells} cells, main-path "
+                             f"tables)")
     ref = np.load(root / RAE_ORACLE)
     P = case.apply_bcs(torch.as_tensor(ref["P"], device=dev))
     P = case.march(P, 2)
@@ -709,12 +934,13 @@ def rae2822_phases(root, dev, smi):
         f"windows' mean vs the oracle's {ref['cp_phases'].shape[0]}-phase "
         f"mean {dcp:.3e} (tol {DCP_TOL:g}); launches {launches2d}")
     assert finite, "non-finite 2D state after the march"
-    assert launches2d == zero, launches2d
+    assert launches2d == counts(2 * window, **STEP2D), launches2d
     assert CL_BAND[0] < cl < CL_BAND[1], cl
     assert dcp < DCP_TOL, dcp
 
-    # 10. 2D breakdown
+    # 10. 2D breakdown: the kernels' rows of phase 7, then the parts
     P3 = to_blocks(bt, P)
+    rows2d = kernel2d_rows(case, P3, STEP2D, errs2d)
     R0, dt3, _ = euler_rhs_grid(bt, fl, P3, with_dt=True, cfl=case.cfl)
     dt = (dt3 * case.active3)[..., None]
     Q0 = primitive2state(fl, P3)
@@ -722,6 +948,9 @@ def rae2822_phases(root, dev, smi):
         "euler_rhs_grid with dt":
             lambda: euler_rhs_grid(bt, fl, P3, with_dt=True, cfl=case.cfl),
         "euler_rhs_grid without dt": lambda: euler_rhs_grid(bt, fl, P3),
+        "euler_rhs_grid with dt, torch-op body (kernels=False)":
+            lambda: euler_rhs_grid(bt, fl, P3, with_dt=True, cfl=case.cfl,
+                                   kernels=False),
         "ghost BC (GhostBC.apply_grid, on a clone)":
             lambda: case.apply_bcs3(P3.clone()),
         "state clone (subtract from the BC line)": lambda: P3.clone(),
@@ -743,18 +972,23 @@ def rae2822_phases(root, dev, smi):
     # 30 and 32 on the flagship's block march
     t0 = time.perf_counter()
     graph_phase("flagship block", lambda X, n, graph: case.march(
-        X, n, graph=graph), P, {}, case=case)
+        X, n, graph=graph), P, STEP2D, case=case)
     graph_phase("flagship block, march_robust",
                 lambda X, n, graph: case.march_robust(X, n, graph=graph),
                 P, {}, case=case)
-    padded_phase("flagship block", lambda X, n, graph: case.march(
-        X, n, graph=graph), P)
+    padded_phase("flagship block, march_robust",
+                 lambda X, n, graph: case.march_robust(X, n, graph=graph),
+                 P)
     log(f"[graph] phases 30 and 32 on the flagship's block march took "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sharded_flagship(root, case, smi, dict(ms_step=ms_step, busy_ms=busy_ms))
+    shard = sharded_flagship(root, case, smi,
+                             dict(ms_step=ms_step, busy_ms=busy_ms))
+    for r in rows2d:
+        r["sharded_launches_per_step"] = shard[r["name"]]
     log(f"[shard25] phase 25 took {time.perf_counter() - t0:.1f} s")
-    return dict(ms_step=ms_step, host_ms=sum(host_w) / 2, busy_ms=busy_ms,
+    return dict(kernel_rows=rows2d, ms_step=ms_step,
+                host_ms=sum(host_w) / 2, busy_ms=busy_ms,
                 activities=acts, peak=peak - base,
                 build_seconds=case.build_seconds, cl=cl, cd=cd,
                 cells_s=n_cells / (ms_step / 1e3))
@@ -771,7 +1005,8 @@ def gather_phases(root, dev, smi, blk):
     """Phases 11-15: the generic gather path. It launches no kernel (its
     ops are torch ops in the port as they are XLA ops in the JAX package),
     so it adds no row to the kernels line; the counters are asserted to
-    stay 0. ``blk`` holds the block march's numbers of phases 9 and 10."""
+    stay 0 on it (phase 12's block side runs the 2D kernels). ``blk``
+    holds the block march's numbers of phases 9 and 10."""
     from ibx_torch.cases import (build_rae2822, build_sphere3d,
                                  force_coefficients)
     from ibx_torch.ops import kernels as K
@@ -797,7 +1032,9 @@ def gather_phases(root, dev, smi, blk):
     assert dict(K.launches) == zero, K.launches
     del g_cpu
 
-    # 12. gather vs block on the card
+    # 12. gather vs block on the card (the block side on the 2D kernel
+    # route, but for the viscous call)
+    K.reset_launches()
     bk = build_rae2822(device=dev, **small)
     part, fl = gg.dom.partitions[0], gg.fluid
     log("[gather-vs-block] same fixture, on the card")
@@ -823,7 +1060,9 @@ def gather_phases(root, dev, smi, blk):
     check("viscous euler_rhs with an mu_t field vs euler_rhs_grid",
           scaled_err(R_g, R_b), GVB_RHS_TOL)
     assert float((R_g - euler_rhs(part, fl, P)).abs().max()) > 0
-    assert dict(K.launches) == zero, K.launches
+    # two RHS calls and five eager steps on the route; the gather side none
+    assert dict(K.launches) == counts(2 + 2 * 5, euler_pass_a_2d=1,
+                                      euler_pass_b_2d=1), K.launches
     del gg, bk
 
     # 13. the gather march at full width
@@ -1259,10 +1498,12 @@ def calls_to(curve, frac):
 def solver_phases(root, dev, smi):
     """Phases 21-23: solver acceleration (multigrid transfers, FAS and
     FAS-Euler, the point-implicit solver), captured by default, with
-    phase 30's rows of the verdict's and the flagship's calls. No kernel
-    lies on it (FAS-Euler runs on the gather path, the point-implicit step
-    on the nd = 2 block path, as in the JAX package), so it adds no row to
-    the kernels line; the four counters are asserted to stay 0."""
+    phase 30's rows of the verdict's and the flagship's calls. FAS-Euler
+    runs on the gather path, where no kernel lies; the point-implicit
+    step on the nd = 2 block path, whose `newton_map` takes its explicit
+    bound at Q_n on the 2D kernel route (passes A and B once) and whose
+    differentiated residual keeps the torch-op body. It adds no row to
+    the kernels line; no 3D kernel may run."""
     from ibx_torch.cases import build_rae2822
     from ibx_torch.ops import kernels as K
     from ibx_torch.ops.block_ops import euler_rhs_block
@@ -1348,7 +1589,10 @@ def solver_phases(root, dev, smi):
           PI_TOL)
     check("solve ratio (relative)",
           abs(float(rg) - float(rc)) / abs(float(rc)), PI_TOL)
-    assert dict(K.launches) == zero, K.launches
+    # the card's newton_map: its explicit bound on the 2D kernel route
+    assert dict(K.launches) == counts(euler_pass_a_2d=1, euler_pass_b_2d=1), \
+        K.launches
+    K.reset_launches()
     del bg, bcpu, gfn, cfn, Ac, Ag, Qn, Qnc
 
     # 22. the FAS verdict (scripts/fas_verdict2d.py), counted in calls
@@ -1572,7 +1816,8 @@ def solver_phases(root, dev, smi):
             g_.manual_seed(0)
     prow = solver_graph_phase(
         f"flagship point-implicit step nd=2 ({RAE_CELLS} cells, frozen "
-        f"limiter)", pi_call(case, gens), P, want={}, reset=reseed,
+        f"limiter)", pi_call(case, gens), P,
+        want=dict(euler_pass_a_2d=1, euler_pass_b_2d=1), reset=reseed,
         trace_eager=False)
     gen = gens[1]
     gen.manual_seed(0)
@@ -1609,10 +1854,10 @@ def solver_phases(root, dev, smi):
     # replaces the one above on the tables, in the same pool
     solver_graph_phase(
         f"flagship point-implicit step nd=2 ({RAE_CELLS} cells, frozen "
-        f"limiter, default generator)", pi_call(case, None), P, want={},
-        trace_eager=False)
+        f"limiter, default generator)", pi_call(case, None), P,
+        want=dict(euler_pass_a_2d=1, euler_pass_b_2d=1), trace_eager=False)
     assert len(bt._graphs.loops) == 1, bt._graphs.loops
-    assert dict(K.launches) == zero, K.launches
+    assert no_3d(K.launches), K.launches
     return dict(ms_cycle=ms["fas"][0], ms_smooth=ms["smooth"][0],
                 busy_cycle=busy_ms, activities_cycle=acts, sync_ms=d_ms,
                 turn_ms=turn_ms, verdict_s_call=secs, ms_pi_step=ms_steps)
@@ -1694,10 +1939,8 @@ def sphere_phases(dev):
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[main] launches: {main_launches}")
     assert finite, "non-finite state after the march"
-    want = dict(rk2_update=2, euler_pass_a=2, euler_pass_b=2,
-                euler_pass_b_fold=0)
-    assert main_launches == {k: n * steps for k, n in want.items()}, \
-        main_launches
+    assert main_launches == counts(steps, rk2_update=2, euler_pass_a=2,
+                                   euler_pass_b=2), main_launches
 
     # 6. grid path (the cell-major march with the fold), same case
     g_steps = 20
@@ -1720,10 +1963,8 @@ def sphere_phases(dev):
         f"finite {g_finite}")
     log(f"[grid] launches: {grid_launches}")
     assert g_finite, "non-finite state after the grid march"
-    want = dict(rk2_update=0, euler_pass_a=2, euler_pass_b=1,
-                euler_pass_b_fold=1)
-    assert grid_launches == {k: n * g_steps for k, n in want.items()}, \
-        grid_launches
+    assert grid_launches == counts(g_steps, euler_pass_a=2, euler_pass_b=1,
+                                   euler_pass_b_fold=1), grid_launches
     launches = dict(main_launches,
                     euler_pass_b_fold=grid_launches["euler_pass_b_fold"])
 
@@ -1915,6 +2156,7 @@ def _sharded_rank(device, smi, wing_dir):
                                  build_rae2822_sharded, build_sphere3d,
                                  build_sphere3d_block_sharded)
     from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.rhs_cs import pallas_eligible
 
     rank = dist.get_rank()
     dev = torch.device(device)
@@ -1929,22 +2171,30 @@ def _sharded_rank(device, smi, wing_dir):
         if not ok:
             raise AssertionError(f"rank {rank}: {name}: {value:.3e}")
 
-    # the block march (2D, no kernel), plain and with the overlap split
+    # the block march (2D), plain and with the overlap split: the 2D
+    # kernel route on each local table the gate admits (a halo block's
+    # sides that leave the local grid make sparse leftover faces)
     case = build_rae2822(device=dev, **SHARD_RAE)
     P, res = case.P0, None
     for _ in range(SHARD_STEPS):
         P, res = case.step(P)
     ref, res_ref = P.cpu(), float(res)
     K.reset_launches()
+    n_route = 0
     for overlap in (False, True):
         sbd, step, P, _ = build_rae2822_block_sharded(
             SHARD_RANKS, case=case, cfl=case.cfl, overlap=overlap)
         assert sbd.mesh.staged == (dev.type == "cuda")
         assert sbd.overlap == overlap
-        if not overlap:
-            rlog(f"RAE2822 {SHARD_RAE}: {case.dom.ncells} cells, "
-                 f"{sbd.B} blocks, chunk {sbd.chunk}, B_loc {sbd.B_loc}, "
-                 f"{len(sbd.halo[rank])} halo blocks, offsets {sbd.offs}")
+        tables = [sbd.bt_own, sbd.bt_sub] if overlap else [sbd.bt]
+        on_route = sum(pallas_eligible(tb) for tb in tables)
+        n_route += 2 * SHARD_STEPS * on_route
+        rlog(f"RAE2822 {SHARD_RAE}: {case.dom.ncells} cells, "
+             f"{sbd.B} blocks, chunk {sbd.chunk}, B_loc {sbd.B_loc}, "
+             f"{len(sbd.halo[rank])} halo blocks, offsets {sbd.offs}, "
+             f"overlap={overlap}: sparse leftover faces "
+             f"{[tb.n_sparse for tb in tables]}, kernel route on "
+             f"{on_route} of {len(tables)} local tables")
         for _ in range(SHARD_STEPS):
             P, res = step(P)
         out = torch.as_tensor(sbd.collect(P))
@@ -1953,7 +2203,11 @@ def _sharded_rank(device, smi, wing_dir):
                SHARD_BLOCK_TOL)
         rcheck("resnorm (relative)", abs(float(res) - res_ref) / res_ref,
                SHARD_RES_RTOL)
-    assert dict(K.launches) == zero, K.launches
+    if dev.type != "cuda":
+        n_route = 0
+    assert dict(K.launches) == counts(n_route, euler_pass_a_2d=1,
+                                      euler_pass_b_2d=1), K.launches
+    K.reset_launches()
 
     # the gather march (no kernel), from the sharded case's initial state,
     # against its scheme on one partition (family-by-family BCs, no freeze
@@ -1994,10 +2248,9 @@ def _sharded_rank(device, smi, wing_dir):
         if i in (0, 4):
             outs[i + 1] = torch.as_tensor(sbd.collect(P))
     launches = dict(K.launches)
-    want = dict(rk2_update=2, euler_pass_a=2, euler_pass_b=2,
-                euler_pass_b_fold=0)
     if dev.type == "cuda":
-        assert launches == {k: 5 * n for k, n in want.items()}, launches
+        assert launches == counts(5, rk2_update=2, euler_pass_a=2,
+                                  euler_pass_b=2), launches
     else:
         assert launches == zero, launches
     rlog(f"sphere launches over 5 steps {launches}")
@@ -2303,9 +2556,11 @@ def wing_full(root, smi):
 
 def block_walls(root, dev, smi):
     """Phase 29: the block march's mirrored and cut-cell walls: one step
-    card vs CPU of each at 16,768 cells, then the 881,152-cell flagship
-    with ``cutcell=True`` 50 steps from the freestream (finite, ms a step,
-    the card's busy time, build s); no kernel launched."""
+    card vs CPU of each at 16,768 cells (the mirrored wall's on the 2D
+    kernel route, the cut-cell wall's on the torch-op body), then the
+    881,152-cell flagship with ``cutcell=True`` 50 steps from the
+    freestream (finite, ms a step, the card's busy time, build s; no
+    kernel launched)."""
     from ibx_torch.cases import build_rae2822
     from ibx_torch.ops import kernels as K
 
@@ -2325,7 +2580,7 @@ def block_walls(root, dev, smi):
         check("resnorm (relative)",
               abs(float(res) - float(res_ref)) / float(res_ref), RES_TOL)
     del card, cpu
-    assert dict(K.launches) == zero, K.launches
+    assert dict(K.launches) == counts(**STEP2D), K.launches
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2368,13 +2623,14 @@ def block_walls(root, dev, smi):
 def sharded_flagship(root, case, smi, blk):
     """Phase 25: the 881,152-cell flagship through the sharded block march
     on one rank (NCCL, this process), beside the single-device block
-    march's numbers of phases 9 and 10 (``blk``)."""
+    march's numbers of phases 9 and 10 (``blk``); returns each kernel's
+    launches a step."""
     from ibx_torch.cases import build_rae2822_block_sharded
     from ibx_torch.cases import force_coefficients
     from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.rhs_cs import pallas_eligible
     from ibx_torch.parallel import one_rank_group
 
-    zero = dict.fromkeys(K.launches, 0)
     with one_rank_group("nccl"):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2414,7 +2670,10 @@ def sharded_flagship(root, case, smi, blk):
             f"({base / 2**30:.3f} GiB held before them), launches "
             f"{launches}")
         assert finite, "non-finite state on the one-rank sharded march"
-        assert launches == zero, launches
+        # the kernel route where the gate admits the local tables (one
+        # rank: no halo block, so no sparse leftover)
+        want = STEP2D if pallas_eligible(sbd.bt) else {}
+        assert launches == counts(SHARD_FULL_STEPS, **want), launches
         assert CL_BAND[0] < cl < CL_BAND[1], cl
         _, busy_ms, _ = profile_busy(lambda: sbd.march(P, 5), 5, "shard25",
                                      ms_step)
@@ -2426,12 +2685,13 @@ def sharded_flagship(root, case, smi, blk):
         for tag, s in (("one-rank sharded flagship block", plain),
                        ("one-rank sharded flagship block, overlap", sbd)):
             graph_phase(tag, lambda X, n, graph, s=s: s.march(
-                X, n, graph=graph), P, {}, case=s)
+                X, n, graph=graph), P, want, case=s)
         log(f"[graph] phase 30 on the one-rank sharded flagship took "
             f"{time.perf_counter() - t0:.1f} s")
     log(f"[shard25] one rank vs one device (phases 9-10 of this run): "
         f"{ms_step:.3f} vs {blk['ms_step']:.3f} ms/step, device busy "
         f"{busy_ms:.3f} vs {blk['busy_ms']:.3f} ms a step; card: {smi}")
+    return {k: launches[k] // SHARD_FULL_STEPS for k in launches}
 
 
 def sharded_sphere_full(case, smi, cs_ms_step):
@@ -2476,10 +2736,8 @@ def sharded_sphere_full(case, smi, cs_ms_step):
             f"and march ({base / 2**30:.2f} GiB held before them), "
             f"launches {launches}")
         assert finite
-        want = dict(rk2_update=2, euler_pass_a=2, euler_pass_b=2,
-                    euler_pass_b_fold=0)
-        assert launches == {k: n * SHARD_SPHERE_STEPS
-                            for k, n in want.items()}, launches
+        want = dict(rk2_update=2, euler_pass_a=2, euler_pass_b=2)
+        assert launches == counts(SHARD_SPHERE_STEPS, **want), launches
         _, busy_ms, _ = profile_busy(lambda: sbd.march(P, 3), 3, "shard26",
                                      ms_step)
         t0 = time.perf_counter()
@@ -2579,7 +2837,11 @@ def kernel_name_counts(events):
     counts = dict.fromkeys(K.launches, 0)
     for e in events:
         n = e.name
-        if "rk2_update_kernel" in n:
+        if "euler_pass_a_2d_kernel" in n:
+            counts["euler_pass_a_2d"] += 1
+        elif "euler_pass_b_2d_kernel" in n:
+            counts["euler_pass_b_2d"] += 1
+        elif "rk2_update_kernel" in n:
             counts["rk2_update"] += 1
         elif "euler_pass_a_kernel" in n:
             counts["euler_pass_a"] += 1
@@ -2974,11 +3236,16 @@ def bench_phase(case3d, smi):
     line = bench.run("cuda", sphere=case3d, env={})
     launches = dict(K.launches)
     log("[bench] " + json.dumps(line))
-    # only the 3D leg launches kernels: 2 of each a channel-split step
-    # over its warm-up, timed and traced steps; the 2D legs none
+    # 2 of each kernel a step over each leg's warm-up, timed and traced
+    # steps: the 3D ones on the sphere's channel-split march, the 2D passes
+    # on the flagship's block march and on its one-rank sharded march
+    # (whose local tables the gate admits, phase 25); the 2D legs build
+    # their marches here, so each capture's eager warm-up step counts too
+    # (the sphere's step was captured in phase 5)
     steps = bench.WARMUP_STEPS + 300 + bench.BUSY_STEPS
-    want = dict(rk2_update=2 * steps, euler_pass_a=2 * steps,
-                euler_pass_b=2 * steps, euler_pass_b_fold=0)
+    want = counts(steps, rk2_update=2, euler_pass_a=2, euler_pass_b=2)
+    for k in STEP2D:
+        want[k] = 2 * STEP2D[k] * (steps + 1)
     log(f"[bench] kernel launches over the bench's legs {launches} "
         f"(want {want})")
     assert launches == want, (launches, want)
@@ -3018,8 +3285,7 @@ def pi3d_phase(dev, smi):
     K.reset_launches()
     gfn, Qn = newton_map(cg.bt, cg.fluid, P, cg.apply_bcs,
                          active=cg.active3.reshape(-1), **kw)
-    assert dict(K.launches) == dict(rk2_update=0, euler_pass_a=1,
-                                    euler_pass_b=1, euler_pass_b_fold=0), \
+    assert dict(K.launches) == counts(euler_pass_a=1, euler_pass_b=1), \
         K.launches
     cfn, Qnc = newton_map(cc.bt, cc.fluid, P.cpu(), cc.apply_bcs,
                           active=cc.active3.reshape(-1), **kw)
@@ -3133,6 +3399,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     blk = rae2822_phases(root, dev, smi)
+    rows += blk.pop("kernel_rows")
     gc.collect()
     torch.cuda.empty_cache()
     gather_phases(root, dev, smi, blk)

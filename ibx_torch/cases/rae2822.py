@@ -12,8 +12,11 @@ build, as in the JAX package:
   state and runs `solve.euler.rk2_step` on ``dom.partitions[0]`` with the
   fused ghost BC of `Domain.fused_boundary`.
 
-Both run on torch ops: the 2D arm has no kernel in either package, so none
-is launched.
+The block march's RHS runs the port's 2D passes A and B
+(`rhs_cs.euler_rhs_grid_2d`, which the JAX package, having no kernel at
+nd = 2, leaves to XLA ops) unless the ``fix3`` blend (``te_fix_radius``,
+``wall_fix_cells``, `march_robust`) or the cut-cell wall keeps it on the
+torch-op body; the gather march runs on torch ops.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@
 The numerics of the single-device block march (`cases.rae2822` with
 ``use_blocks=True``), run on every rank of the process group over its
 chunk of blocks: block-partitioned state, halo exchange per RK stage and
-per BC application, the torch-op block RHS on each rank's local grid. No
-kernel lies on it (nd = 2, as in the JAX package).
+per BC application, the block RHS on each rank's local grid. That RHS
+takes the 2D kernel route where the gate admits the local tables (one
+rank); several ranks leave sparse leftover faces at halo blocks, which
+keep the torch-op body. The JAX package has no 2D kernel.
 """
 
 from __future__ import annotations

@@ -6,10 +6,11 @@ package's formulations, concat by default and padded under
 ``IBX_PADDED_FACES``) and `cell_gradient_grid` on it, the block Euler RHS
 `euler_rhs_grid` with the ``fix3`` robustness blend, the ``cut3``
 cut-cell wall, the ``viscous`` fluxes with an ``mu_t3`` field and, at
-nd = 3, its kernel route, implicit residual smoothing, and the grid
-marches `rk2_step_grid` / `euler_step_grid` with their flat wrappers. At
-nd = 2 every call takes the torch-op body: neither package has a kernel
-for it. The minmod limiter is `ibx_torch.ops.operators.minmod`."""
+nd = 3 and 2, its kernel routes (`ops/rhs_cs.py`), implicit residual
+smoothing, and the grid marches `rk2_step_grid` / `euler_step_grid` with
+their flat wrappers. The JAX package has no kernel at nd = 2; the port's
+2D route gives its torch-op body's values bit for bit on the CPU. The
+minmod limiter is `ibx_torch.ops.operators.minmod`."""
 
 from __future__ import annotations
 
@@ -436,11 +437,13 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     reference numerics where 0 or None).
 
     ``kernels`` (the counterpart of ``IBX_PALLAS_RHS``): every
-    `rhs_cs.pallas_eligible` call goes to the kernel route
-    `rhs_cs.euler_rhs_grid_pallas` (on the CPU the kernels' plain versions
-    run); False forces the torch-op body, which also serves the ineligible
-    calls (nd = 2, ``frozen``, ``fix3``, a sparse leftover). ``fold``
-    reaches the kernel route's plain-RHS call.
+    `rhs_cs.pallas_eligible` call goes to a kernel route,
+    `rhs_cs.euler_rhs_grid_pallas` at nd = 3 and `rhs_cs.euler_rhs_grid_2d`
+    at nd = 2 (on the CPU the kernels' plain versions run); False forces
+    the torch-op body, which also serves the ineligible calls
+    (``frozen``, ``fix3``, a sparse leftover). ``fold`` reaches the 3D
+    route's plain-RHS call (the 2D route always folds its 2:1
+    corrections into the kernels).
 
     ``viscous=True`` subtracts Newtonian viscous + heat-conduction face
     fluxes (reference ``src/cfd.jl:664-736``) using the pass-A cell
@@ -457,9 +460,13 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     vector, divides by the fluid fraction and scales dt by it (the
     cut-cell CFL); it takes the torch-op body.
     """
-    from .rhs_cs import euler_rhs_grid_pallas, pallas_eligible
+    from .rhs_cs import (euler_rhs_grid_2d, euler_rhs_grid_pallas,
+                         pallas_eligible)
     if kernels and pallas_eligible(bt, viscous=viscous, frozen=frozen,
                                    fix3=fix3, mu_t3=mu_t3, cut3=cut3):
+        if bt.nd == 2:
+            return euler_rhs_grid_2d(bt, fluid, P3, high_order=high_order,
+                                     with_dt=with_dt, cfl=cfl)
         return euler_rhs_grid_pallas(bt, fluid, P3, high_order=high_order,
                                      with_dt=with_dt, cfl=cfl, fold=fold)
     with device_span("march.rhs", P3.device):

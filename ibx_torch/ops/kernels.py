@@ -1,28 +1,35 @@
 """The hand-written CUDA kernels of the block march, their wrappers,
 launch counters and plain PyTorch versions.
 
-| kernel (counter)    | source               | replaces (pallas_rhs.py)  |
-| ------------------- | -------------------- | ------------------------- |
-| `rk2_update`        | csrc/rk2_update.cu   | `_kernel_update`          |
-| `euler_pass_a`      | csrc/euler_pass_a.cu | `_kernel_a`               |
-| `euler_pass_b`      | csrc/euler_pass_b.cu | `_kernel_b`               |
-| `euler_pass_b_fold` | csrc/euler_pass_b.cu | `_kernel_b`, `have_cols`  |
+| kernel (counter)    | source                  | replaces                  |
+| ------------------- | ----------------------- | ------------------------- |
+| `rk2_update`        | csrc/rk2_update.cu      | `_kernel_update`          |
+| `euler_pass_a`      | csrc/euler_pass_a.cu    | `_kernel_a`               |
+| `euler_pass_b`      | csrc/euler_pass_b.cu    | `_kernel_b`               |
+| `euler_pass_b_fold` | csrc/euler_pass_b.cu    | `_kernel_b`, `have_cols`  |
+| `euler_pass_a_2d`   | csrc/euler_pass_a_2d.cu | no TPU kernel: `face_a`   |
+| `euler_pass_b_2d`   | csrc/euler_pass_b_2d.cu | no TPU kernel: `face_b`   |
 
+(the TPU kernels of ``ibx/ops/pallas_rhs.py``; the JAX package has no
+kernel at nd = 2, so the 2D passes replace the torch-op face evaluation
+of `block_ops.face_accumulate` with `block_ops.face_a` / `face_b`.)
 `stamp` (``csrc/stamp.cu``, no counter, no JAX counterpart) writes one
 ``(tag, %globaltimer)`` record for `utils.monitor.device_span`.
 
-All grids are float32 ``[B, C, bs, bs*bs]`` (within-block cell index
-w = z*bs^2 + y*bs + x). The kernels are compiled for ``sm_90a`` with
-``nvcc`` at first use, one process per source in parallel, linked into
-one shared library under ``ibx_torch/_build/`` and called through
-``ctypes`` on the current CUDA stream.
+The 3D grids are float32 ``[B, C, bs, bs*bs]`` (within-block cell index
+w = z*bs^2 + y*bs + x); the 2D ones are the march's cell-major
+``[B, bs, bs, 4]`` (one float4 a cell). The kernels are compiled for
+``sm_90a`` with ``nvcc`` at first use, one process per source in
+parallel, linked into one shared library under ``ibx_torch/_build/`` and
+called through ``ctypes`` on the current CUDA stream.
 
 Each wrapper takes its plain version (``*_ref``, the same expressions
 written with tensor ops) only for tensors on the CPU; for CUDA tensors it
 launches the kernel, adds one to ``launches[name]`` and raises if the
 launch fails. Nothing falls back. Passes A and B take the block sizes in
 ``STENCIL_BLOCK_SIZES`` (one CUDA block per mesh block, one thread per
-(y, x) column) and raise ValueError on any other, on every device.
+(y, x) column in 3D, per cell in 2D) and raise ValueError on any other,
+on every device.
 """
 
 from __future__ import annotations
@@ -38,13 +45,13 @@ from typing import Dict, Optional
 
 import torch
 
-from ..physics.fluid import Fluid
+from ..physics.fluid import Fluid, speed_of_sound
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rk2_update.cu", "euler_pass_a.cu", "euler_pass_b.cu",
-           "stamp.cu")
+           "euler_pass_a_2d.cu", "euler_pass_b_2d.cu", "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -54,7 +61,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 STENCIL_BLOCK_SIZES = (4, 8, 16)
 
 launches: Dict[str, int] = {"rk2_update": 0, "euler_pass_a": 0,
-                            "euler_pass_b": 0, "euler_pass_b_fold": 0}
+                            "euler_pass_b": 0, "euler_pass_b_fold": 0,
+                            "euler_pass_a_2d": 0, "euler_pass_b_2d": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -131,10 +139,15 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                                      f, p]
     lib.ibx_euler_pass_a_smem.argtypes = [i, i]
     lib.ibx_euler_pass_b_smem.argtypes = [i, i]
+    lib.ibx_euler_pass_a_2d.argtypes = [p, p, p, p, p, p, p, p, p, i, i, f,
+                                        f, p]
+    lib.ibx_euler_pass_b_2d.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
+                                        f, f, f, p]
     lib.ibx_stamp.argtypes = [p, p, ll, ll, p]
     for fn in (lib.ibx_rk2_update, lib.ibx_euler_pass_a,
                lib.ibx_euler_pass_b, lib.ibx_euler_pass_a_smem,
-               lib.ibx_euler_pass_b_smem, lib.ibx_stamp):
+               lib.ibx_euler_pass_b_smem, lib.ibx_euler_pass_a_2d,
+               lib.ibx_euler_pass_b_2d, lib.ibx_stamp):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -524,4 +537,209 @@ def euler_pass_b(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
         int(high_order), fluid.R, fluid.cv, fluid.gR, _stream(dev))
     _raise_on(err, name)
     launches[name] += 1
+    return R
+
+
+# ---------------------------------------------------------------------------
+# 2D passes A and B (cell-major [B, bs, bs, 4]; dim d on axis 2 - d)
+# ---------------------------------------------------------------------------
+
+def _halo2(X, meta, nbr_table, d: int, s: int):
+    """The side-s halo line along dim d of every block of ``X`` [B, bs,
+    bs, C]: the neighbor block's opposite edge line, or the own edge line
+    on a one-sided boundary side (`block_ops._halos`)."""
+    ax = 2 - d
+    bs = X.shape[ax]
+    first = X.narrow(ax, 0, 1)
+    last = X.narrow(ax, bs - 1, 1)
+    bnd = meta[:, 9 + 2 * d + s].view(-1, 1, 1, 1)
+    nb = nbr_table[:, 2 * d + s].long()
+    if s == 0:
+        return torch.where(bnd > 0, first, last[nb])
+    return torch.where(bnd > 0, last, first[nb])
+
+
+def _faces2(parts, meta, nbr_table, d: int, face_fn):
+    """``face_fn`` over the bs+1 faces along dim d of every block (face k
+    between cells k-1 and k, the halo lines at the ends), each part
+    extended by its halo lines, times the faces' masks (edge_valid[d][0]
+    on face 0, edge_valid[d][1] on face bs, 1 between): the padded
+    formulation of `block_ops.face_accumulate`, face for face the value of
+    its default one."""
+    ax = 2 - d
+    bs = parts[0].shape[ax]
+    ext = [torch.cat([_halo2(p, meta, nbr_table, d, 0), p,
+                      _halo2(p, meta, nbr_table, d, 1)], dim=ax)
+           for p in parts]
+    h = meta[:, d].view(-1, 1, 1, 1)
+    F = face_fn(tuple(e.narrow(ax, 0, bs + 1) for e in ext),
+                tuple(e.narrow(ax, 1, bs + 1) for e in ext), h, h)
+    B = meta.shape[0]
+    m = torch.ones((B, bs + 1), dtype=meta.dtype, device=meta.device)
+    m[:, 0] = meta[:, 3 + 2 * d]
+    m[:, bs] = meta[:, 4 + 2 * d]
+    shape = [B, 1, 1, 1]
+    shape[ax] = bs + 1
+    F = F * m.view(shape)
+    return F.narrow(ax, 0, bs), F.narrow(ax, 1, bs), h
+
+
+def _fold_add2(X, rows, vals, d: int) -> None:
+    """Add, in place, row ``rows[b, 2d + s]`` of the compact 2:1
+    corrections ``vals`` [V, bs, C] to block b's side-s edge line along dim
+    d of ``X`` [B, bs, bs, C], for both sides (a block without a row adds
+    the zero row last: no data-dependent shape, so that a CUDA graph can
+    capture it)."""
+    bs = X.shape[1]
+    vz = torch.cat([vals, vals.new_zeros((1,) + tuple(vals.shape[1:]))])
+    for s in (0, 1):
+        r = rows[:, 2 * d + s].long()
+        idx = torch.where(r >= 0, r, vz.shape[0] - 1)
+        X.select(2 - d, bs - 1 if s else 0).add_(vz[idx])
+
+
+def euler_pass_a_2d_ref(fluid: Fluid, P3, meta, nbr_table, rows, vals, *,
+                        with_dt: bool, cfl: float):
+    """Plain version of `euler_pass_a_2d`: the torch-op body of
+    `block_ops.euler_rhs_grid` for pass A (`block_ops.face_a` on each face,
+    the divergence, the 2:1 corrections added at the edge lines, the
+    sensor and the dt bound), in its order, so that on the CPU it gives
+    that body's values bit for bit."""
+    from .block_ops import face_a     # block_ops imports this module
+    from .operators import abs_select
+
+    ncomp = P3.shape[-1]
+    fn = face_a(with_dt)
+    nu = torch.full(tuple(P3.shape[:-1]) + (1,), 1e-7, dtype=P3.dtype,
+                    device=P3.device)
+    if with_dt:
+        sound = speed_of_sound(fluid, P3[..., 1])[..., None]
+    du, sf = [], []
+    for d in range(2):
+        parts = (P3,)
+        if with_dt:
+            parts = (P3, P3[..., 2 + d:3 + d].abs() + sound)
+        Fm, Fp, h = _faces2(parts, meta, nbr_table, d, fn)
+        signed = ncomp + 1
+        out = torch.cat([(Fp[..., :signed] - Fm[..., :signed]) / h,
+                         (Fp[..., signed:] + Fm[..., signed:]) / h], dim=-1)
+        _fold_add2(out, rows, vals, d)
+        du.append(out[..., :ncomp].contiguous())
+        G, U = out[..., ncomp:ncomp + 1], out[..., ncomp + 1:ncomp + 2]
+        nu = torch.maximum(nu, (1e-7 + abs_select(G)) / (1e-7 + U))
+        if with_dt:
+            sf.append(out[..., ncomp + 2])
+    dt = cfl / (sf[0] + sf[1]) if with_dt else None
+    return du[0], du[1], nu[..., 0], dt
+
+
+def _check_rows(rows, vals, B: int, bs: int, K: int, device) -> None:
+    if rows.device != device or rows.dtype != torch.int32 \
+            or tuple(rows.shape) != (B, 4) or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous int32 [B, 4] tensor "
+                         f"on {device}")
+    _check("vals", vals, (vals.shape[0], bs, K), device)
+
+
+def _grid2_geometry(P3):
+    if P3.dim() != 4 or P3.shape[3] != 4 or P3.shape[1] != P3.shape[2]:
+        raise ValueError(f"state must be [B, bs, bs, 4], got "
+                         f"{tuple(P3.shape)}")
+    B, bs = P3.shape[0], P3.shape[1]
+    if bs not in STENCIL_BLOCK_SIZES:
+        raise ValueError(f"passes A and B take block sizes "
+                         f"{STENCIL_BLOCK_SIZES}, got {bs}")
+    return B, bs
+
+
+def _check_float4(**xs) -> None:
+    """The 2D kernels read and write one float4 a cell: 16-byte aligned."""
+    for name, x in xs.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             f"float4 loads")
+
+
+def euler_pass_a_2d(fluid: Fluid, P3, meta, nbr_table, rows, vals, *,
+                    with_dt: bool, cfl: float):
+    """2D RHS pass A with its 2:1 corrections, sensor and dt: returns
+    ``(du_x, du_y, nu, dt)``, the Green-Gauss gradients ``[B, bs, bs, 4]``
+    a dim, the JST sensor ``nu [B, bs, bs]`` and, with ``with_dt``, the
+    local step ``dt = cfl / wave-speed sum`` ``[B, bs, bs]`` (else None).
+    ``rows`` int32 [B, 4] is the row of ``vals`` f32 [V, bs, 7 | 6] holding
+    block b's correction of side s of dim d at column 2d + s, or -1
+    (`BlockTables.fold_rows`); a row's channels are `block_ops.face_a`'s,
+    [du (4), G, U (, sf)], its index along the edge y for d = 0 and x for
+    d = 1 (`block_ops.interface_corrections`)."""
+    B, bs = _grid2_geometry(P3)
+    dev = P3.device
+    _check("P", P3, (B, bs, bs, 4), dev)
+    _check_tables(meta, nbr_table, B, dev)
+    _check_rows(rows, vals, B, bs, 7 if with_dt else 6, dev)
+    if dev.type == "cpu":
+        return euler_pass_a_2d_ref(fluid, P3, meta, nbr_table, rows, vals,
+                                   with_dt=with_dt, cfl=cfl)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_float4(P=P3)
+    du = torch.empty((2, B, bs, bs, 4), dtype=P3.dtype, device=dev)
+    nu = torch.empty((B, bs, bs), dtype=P3.dtype, device=dev)
+    dt = torch.empty_like(nu) if with_dt else None
+    err = build().ibx_euler_pass_a_2d(
+        _ptr(P3), _ptr(meta), _ptr(nbr_table), _ptr(rows), _ptr(vals),
+        _ptr(du[0]), _ptr(du[1]), _ptr(nu), _ptr(dt), B,
+        bs.bit_length() - 1, fluid.gR, float(cfl), _stream(dev))
+    _raise_on(err, "euler_pass_a_2d")
+    launches["euler_pass_a_2d"] += 1
+    return du[0], du[1], nu, dt
+
+
+def euler_pass_b_2d_ref(fluid: Fluid, P3, du_x, du_y, nu, meta, nbr_table,
+                        rows, vals, *, high_order: bool):
+    """Plain version of `euler_pass_b_2d`: the torch-op body of
+    `block_ops.euler_rhs_grid` for pass B (`block_ops.face_b` on each
+    face, the divergence a dim with its 2:1 corrections, the dims summed),
+    in its order, so that on the CPU it gives that body's R bit for bit."""
+    from .block_ops import face_b     # block_ops imports this module
+
+    R = None
+    for d, du in enumerate((du_x, du_y)):
+        Fm, Fp, h = _faces2((P3, du, nu[..., None]), meta, nbr_table, d,
+                            face_b(fluid, high_order, d))
+        Rd = (Fp - Fm) / h
+        _fold_add2(Rd, rows, vals, d)
+        R = Rd if R is None else R + Rd
+    return R
+
+
+def euler_pass_b_2d(fluid: Fluid, P3, du_x, du_y, nu, meta, nbr_table,
+                    rows, vals, *, high_order: bool):
+    """2D RHS pass B: ``R [B, bs, bs, 4]`` from the state, the pass-A
+    gradients ``du_x``, ``du_y`` [B, bs, bs, 4] and the sensor ``nu`` [B,
+    bs, bs], with the 2:1 corrections of R: ``rows`` as in
+    `euler_pass_a_2d`, ``vals`` f32 [V, bs, 4]."""
+    B, bs = _grid2_geometry(P3)
+    dev = P3.device
+    g4, g1 = (B, bs, bs, 4), (B, bs, bs)
+    _check("P", P3, g4, dev)
+    _check("du_x", du_x, g4, dev)
+    _check("du_y", du_y, g4, dev)
+    _check("nu", nu, g1, dev)
+    _check_tables(meta, nbr_table, B, dev)
+    _check_rows(rows, vals, B, bs, 4, dev)
+    if dev.type == "cpu":
+        return euler_pass_b_2d_ref(fluid, P3, du_x, du_y, nu, meta,
+                                   nbr_table, rows, vals,
+                                   high_order=high_order)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_float4(P=P3, du_x=du_x, du_y=du_y, vals=vals)
+    R = torch.empty_like(P3)
+    err = build().ibx_euler_pass_b_2d(
+        _ptr(P3), _ptr(du_x), _ptr(du_y), _ptr(nu), _ptr(meta),
+        _ptr(nbr_table), _ptr(rows), _ptr(vals), _ptr(R), B,
+        bs.bit_length() - 1, int(high_order), fluid.R, fluid.cv, fluid.gR,
+        _stream(dev))
+    _raise_on(err, "euler_pass_b_2d")
+    launches["euler_pass_b_2d"] += 1
     return R

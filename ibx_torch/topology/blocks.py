@@ -4,8 +4,8 @@
 host compiler (`ibx/topology/blocks.py`); it returns that package's
 `BlockTables` fields as a dict of numpy arrays, at nd = 2 or 3.
 `BlockTables` holds what the block marches need as tensors on one device,
-plus, at nd = 3, the per-block tables the CUDA kernels read (`meta`,
-`nbr_table`, `fold_rows`).
+plus the per-block tables the CUDA kernels read (`meta`, `nbr_table`,
+`fold_rows`).
 
 Face classification (see the JAX module): intra-block and equal-size
 inter-block faces are dense shifts; outer-boundary one-sided faces are
@@ -19,7 +19,7 @@ route leaves to it (`rhs_cs.pallas_eligible`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +43,15 @@ class BlockTables:
       sparse accumulations divide by them: the leftover faces and the
       cut-cell wall's cut faces); n_sparse the leftover faces' count over
       all dims.
-    Kernel tables (nd = 3 only, None at nd = 2, which no kernel takes):
-      meta f32[B, 16] = h_d (3), edge_valid[d][s] (6), bnd[d][s] (6), pad;
+    Kernel tables (the same layout at nd = 2 and 3, zero past nd):
+      meta f32[B, 16] = h_d (0..2), edge_valid[d][s] (3 + 2d + s),
+      bnd[d][s] (9 + 2d + s), pad;
       nbr_table int32[B, 8] = nbr[d][s] (x0 x1 y0 y1 z0 z1), pad;
-      fold_rows int32[B, 6]: at 2d + s, the row of block b in the (d,
+      fold_rows int32[B, 2 nd]: at 2d + s, the row of block b in the (d,
       s)-ordered concatenation of the interface rows cat(fs_block[d][s],
-      cs_block[d][s]), or -1 (the pass-B fold's row index,
-      `kernels.euler_pass_b`).
+      cs_block[d][s]), or -1 (the row index of the compact 2:1
+      corrections: the 3D pass-B fold, `kernels.euler_pass_b`, and both
+      2D passes, `kernels.euler_pass_a_2d` / `euler_pass_b_2d`).
     """
 
     nbr: Tuple
@@ -66,9 +68,9 @@ class BlockTables:
     sp_wr: Tuple
     sp_wl: Tuple
     spacing_flat: torch.Tensor
-    meta: Optional[torch.Tensor]
-    nbr_table: Optional[torch.Tensor]
-    fold_rows: Optional[torch.Tensor]
+    meta: torch.Tensor
+    nbr_table: torch.Tensor
+    fold_rows: torch.Tensor
     n_blocks: int
     block_size: int
     nd: int
@@ -119,26 +121,21 @@ class BlockTables:
 
         h = np.asarray(f["h"], np.float32)
         n_sparse = sum(int(np.asarray(o).shape[0]) for o in f["sp_owner"])
-        meta = nbr_table = fold_rows = None
-        if nd == 3:
-            meta = np.zeros((B, 16), np.float32)
-            meta[:, 0:3] = h
-            nbr_table = np.zeros((B, 8), np.int32)
-            fold_rows = np.full((B, 6), -1, np.int32)
-            n_rows = 0
-            for d in range(nd):
-                for s in range(2):
-                    meta[:, 3 + 2 * d + s] = f["edge_valid"][d][s]
-                    meta[:, 9 + 2 * d + s] = f["bnd"][d][s]
-                    nbr_table[:, 2 * d + s] = f["nbr"][d][s]
-                    ifc = np.concatenate([np.asarray(f["fs_block"][d][s]),
-                                          np.asarray(f["cs_block"][d][s])])
-                    fold_rows[ifc.astype(np.int64), 2 * d + s] = \
-                        n_rows + np.arange(ifc.shape[0], dtype=np.int32)
-                    n_rows += ifc.shape[0]
-            meta = f32(meta)
-            nbr_table = torch.as_tensor(nbr_table, device=device)
-            fold_rows = torch.as_tensor(fold_rows, device=device)
+        meta = np.zeros((B, 16), np.float32)
+        meta[:, 0:nd] = h
+        nbr_table = np.zeros((B, 8), np.int32)
+        fold_rows = np.full((B, 2 * nd), -1, np.int32)
+        n_rows = 0
+        for d in range(nd):
+            for s in range(2):
+                meta[:, 3 + 2 * d + s] = f["edge_valid"][d][s]
+                meta[:, 9 + 2 * d + s] = f["bnd"][d][s]
+                nbr_table[:, 2 * d + s] = f["nbr"][d][s]
+                ifc = np.concatenate([np.asarray(f["fs_block"][d][s]),
+                                      np.asarray(f["cs_block"][d][s])])
+                fold_rows[ifc.astype(np.int64), 2 * d + s] = \
+                    n_rows + np.arange(ifc.shape[0], dtype=np.int32)
+                n_rows += ifc.shape[0]
         return cls(
             nbr=per_side("nbr", idx),
             bnd=per_side("bnd", f32),
@@ -154,7 +151,9 @@ class BlockTables:
             sp_wr=per_dim("sp_wr", f32),
             sp_wl=per_dim("sp_wl", f32),
             spacing_flat=f32(f["spacing_flat"]),
-            meta=meta, nbr_table=nbr_table, fold_rows=fold_rows,
+            meta=f32(meta),
+            nbr_table=torch.as_tensor(nbr_table, device=device),
+            fold_rows=torch.as_tensor(fold_rows, device=device),
             n_blocks=B, block_size=bs, nd=nd, n_cells=int(f["n_cells"]),
             n_sparse=n_sparse,
         )

@@ -9,8 +9,10 @@ tests/data/rae2822_cp_medium.npz (37,120 cells, a shock on the mesh).
 
 Both packages get the same numpy inputs: the JAX package's block tables
 and ghost families go through `ibx_torch.convert.tables_from_numpy`, and
-states are made from a seed with numpy. No kernel is involved: nd = 2 takes
-the torch-op body in the port and the XLA body in the JAX package."""
+states are made from a seed with numpy. No kernel launches: the JAX
+package's nd = 2 takes its XLA body, and the port's 2D kernel route
+(`rhs_cs.euler_rhs_grid_2d`) runs the kernels' plain versions on CPU
+tensors, which give the torch-op body's values bit for bit."""
 
 import dataclasses
 import json
@@ -31,6 +33,7 @@ from ibx.topology.blocks import _colid
 from ibx_torch.convert import tables_from_numpy
 from ibx_torch.ops import block_ops as bo
 from ibx_torch.ops import kernels as K
+from ibx_torch.ops import rhs_cs
 from ibx_torch.ops.rhs_cs import pallas_eligible
 from ibx_torch.physics.bc import apply_flow_bc, flow_bc
 from ibx_torch.physics.fluid import make_fluid, physicality_guard
@@ -87,13 +90,104 @@ def te_fix(jx, r=0.3):
     return np.clip((2 * r - d_te) / r, 0.0, 1.0).astype(np.float32), d_te
 
 
-def test_2d_takes_no_kernel_route(setup):
-    """nd = 2 is never kernel-eligible, and a 2D RHS counts no launch."""
+def test_2d_takes_no_kernel_route(setup, monkeypatch):
+    """The gate at nd = 2: the plain Euler configuration takes the kernel
+    route (`rhs_cs.euler_rhs_grid_2d`); frozen gradients, ``fix3``,
+    ``cut3``, viscous fluxes, an ``mu_t3`` field and a sparse leftover
+    keep the torch-op body. On CPU tensors the route launches no kernel:
+    no launch is counted."""
     jx, tb, _, _ = setup
-    assert not pallas_eligible(tb)
+    assert pallas_eligible(tb)
+    one = torch.ones(1)
+    for kw in (dict(frozen=([one], one)), dict(fix3=one), dict(cut3={}),
+               dict(viscous=True), dict(mu_t3=one)):
+        assert not pallas_eligible(tb, **kw), kw
+    assert not pallas_eligible(dataclasses.replace(tb, n_sparse=1))
+    routed = []
+    route = rhs_cs.euler_rhs_grid_2d
+    monkeypatch.setattr(rhs_cs, "euler_rhs_grid_2d",
+                        lambda *a, **k: routed.append(1) or route(*a, **k))
     K.reset_launches()
-    bo.euler_rhs_block(tb, make_fluid(), t(perturbed(jx)))
+    fl, P = make_fluid(), t(perturbed(jx))
+    bo.euler_rhs_block(tb, fl, P)
+    assert routed == [1]
+    bo.euler_rhs_block(tb, fl, P, fix=torch.zeros(tb.n_cells))
+    bo.euler_rhs_block(tb, fl, P, kernels=False)
+    assert routed == [1]
     assert not any(K.launches.values())
+
+
+def _nested_equal(a, b):
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_nested_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("high_order", [True, False])
+@pytest.mark.parametrize("with_dt", [True, False])
+def test_plain_2d_passes_match_op_body(setup, with_dt, high_order):
+    """The 2D kernel route on CPU tensors (the plain versions of
+    `kernels.euler_pass_a_2d` / `euler_pass_b_2d` with the route's 2:1
+    glue) against the torch-op body (`_euler_rhs_ops`): R, and with dt
+    the dt bound, du and nu, equal bit for bit. Tolerance 0: the plain
+    versions repeat the body's operations in its order, 2:1 corrections
+    included (pass B adds each dim's before it sums the dims, as the body
+    does); the CUDA kernels are held to the plain versions on the card
+    (chip_smoke.py). The fixture has 2:1 rows on both sides of both
+    dims; the state is column-major, as a restart file loads, which the
+    route must take."""
+    jx, tb, _, _ = setup
+    assert all(int((tb.fold_rows[:, q] >= 0).sum()) > 0 for q in range(4))
+    P = t(perturbed(jx, seed=3)).t().contiguous().t()
+    fl, P3 = make_fluid(), bo.to_blocks(tb, P)
+    assert not P3.is_contiguous()
+    K.reset_launches()
+    out = rhs_cs.euler_rhs_grid_2d(tb, fl, P3, high_order=high_order,
+                                   with_dt=with_dt, cfl=0.7)
+    ref = bo._euler_rhs_ops(tb, fl, P3, high_order, with_dt, 0.7, None,
+                            None, False, None, None)
+    assert _nested_equal(out, ref)
+    assert not any(K.launches.values())
+
+
+def _edge_line(tb, d, s):
+    """[B, bs, bs] bool: the cells of each block's side-s edge along d."""
+    bs = tb.block_size
+    m = torch.zeros((tb.n_blocks, bs, bs), dtype=torch.bool)
+    m.select(2 - d, bs - 1 if s else 0).fill_(True)
+    return m
+
+
+@pytest.mark.parametrize("side", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_plain_2d_corrections_reach_their_side(setup, side):
+    """Each 2:1 side's compact rows land on that side's edge line and
+    nowhere else: with side (d, s)'s rows dropped (-1), pass A's du_d and
+    pass B's R change on the edge line of every block with a row there,
+    and nowhere else; the other dim's du does not change."""
+    jx, tb, _, _ = setup
+    d, s = side
+    fl, bs = make_fluid(), tb.block_size
+    P3 = bo.to_blocks(tb, t(perturbed(jx, seed=4)))
+    rng = np.random.default_rng(30 + 2 * d + s)
+    V = int((tb.fold_rows >= 0).sum())
+    valsA = t(rng.uniform(1.0, 2.0, (V, bs, 7)))
+    valsB = t(rng.uniform(1.0, 2.0, (V, bs, 4)))
+    dropped = tb.fold_rows.clone()
+    dropped[:, 2 * d + s] = -1
+    want = _edge_line(tb, d, s) & (tb.fold_rows[:, 2 * d + s] >= 0)[
+        :, None, None]
+    assert want.any()
+    a = [K.euler_pass_a_2d(fl, P3, tb.meta, tb.nbr_table, rows, valsA,
+                           with_dt=True, cfl=0.7)
+         for rows in (tb.fold_rows, dropped)]
+    assert torch.equal((a[0][d] != a[1][d]).any(dim=-1), want)
+    assert torch.equal(a[0][1 - d], a[1][1 - d])
+    du_x, du_y, nu, _ = a[0]
+    R = [K.euler_pass_b_2d(fl, P3, du_x, du_y, nu, tb.meta, tb.nbr_table,
+                           rows, valsB, high_order=True)
+         for rows in (tb.fold_rows, dropped)]
+    assert torch.equal((R[0] != R[1]).any(dim=-1), want)
 
 
 @pytest.mark.parametrize("variant", ["plain", "low_order", "frozen", "fix"])

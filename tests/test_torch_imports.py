@@ -189,5 +189,13 @@ def test_cpu_tensors_launch_nothing():
     vals = torch.ones((B * 6, 5, bs * bs))
     K.euler_pass_b(fl, P, du, one * 0.5, meta, nbr, high_order=True,
                    cols6=(rows, vals))
+    P3 = P[:, :4].reshape(B, bs, bs, bs, 4)[:, 0].contiguous()
+    rows2 = torch.arange(B * 4, dtype=torch.int32).view(B, 4)
+    du_x, du_y, nu, _ = K.euler_pass_a_2d(fl, P3, meta, nbr, rows2,
+                                          torch.ones((B * 4, bs, 7)),
+                                          with_dt=True, cfl=0.5)
+    K.euler_pass_b_2d(fl, P3, du_x, du_y, nu, meta, nbr, rows2,
+                      torch.ones((B * 4, bs, 4)), high_order=True)
     assert K.launches == {"rk2_update": 0, "euler_pass_a": 0,
-                          "euler_pass_b": 0, "euler_pass_b_fold": 0}
+                          "euler_pass_b": 0, "euler_pass_b_fold": 0,
+                          "euler_pass_a_2d": 0, "euler_pass_b_2d": 0}

@@ -84,8 +84,25 @@ def test_block_tables_equal(cases):
     for k in ref:
         _equal(ref[k], out[k], k)
     assert pt.bt.nd == 2 and pt.bt.n_sparse == 0
-    assert pt.bt.meta is None and pt.bt.nbr_table is None \
-        and pt.bt.fold_rows is None
+    # the 2D kernels' tables: meta, nbr_table and fold_rows in the 3D
+    # layout, zero past nd
+    bt = pt.bt
+    meta, nbr = bt.meta.numpy(), bt.nbr_table.numpy()
+    np.testing.assert_array_equal(meta[:, :2], bt.h.numpy())
+    for d in range(2):
+        for s in range(2):
+            np.testing.assert_array_equal(meta[:, 3 + 2 * d + s],
+                                          out["edge_valid"][d][s])
+            np.testing.assert_array_equal(meta[:, 9 + 2 * d + s],
+                                          out["bnd"][d][s])
+            np.testing.assert_array_equal(nbr[:, 2 * d + s],
+                                          out["nbr"][d][s])
+    assert not meta[:, [2, 7, 8, 13, 14, 15]].any() and not nbr[:, 4:].any()
+    rows = bt.fold_rows.numpy()
+    n_ifc = sum(int(bt.fs_block[d][s].shape[0] + bt.cs_block[d][s].shape[0])
+                for d in range(2) for s in range(2))
+    assert rows.shape == (bt.n_blocks, 4)
+    np.testing.assert_array_equal(np.sort(rows[rows >= 0]), np.arange(n_ifc))
 
 
 def test_ghost_families_equal(cases):
