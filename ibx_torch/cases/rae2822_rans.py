@@ -31,6 +31,7 @@ from ..physics.turbulence import wall_function
 from ..solve.rans import build_rans_march
 from ..topology.blocked_bc import GhostBC, _collect_families
 from ..topology.domain import Domain, require_device
+from ..utils.monitor import device_span, span
 from .rae2822 import RAE_DAT
 
 
@@ -53,15 +54,17 @@ class Rae2822RansCase:
 
 def wall_state_fn(fluid: Fluid) -> Callable:
     """``(Pi, nrm, y) -> WallState`` of the wall function from the image
-    point's tangential velocity and kinematic viscosity."""
+    point's tangential velocity and kinematic viscosity, inside the
+    device span ``march.wall_function``."""
     def wall_state(Pi, nrm, y):
-        u = Pi[:, 2:]
-        un = (u * nrm).sum(dim=1)
-        ut = u - un[:, None] * nrm
-        V_t = torch.sqrt((ut ** 2).sum(dim=1) + 1e-12)
-        rho = Pi[:, 0] / (fluid.R * Pi[:, 1].clamp(min=10.0))
-        nu = dynamic_viscosity(fluid, Pi[:, 1]) / rho
-        return wall_function(y, V_t, nu)
+        with device_span("march.wall_function", Pi.device):
+            u = Pi[:, 2:]
+            un = (u * nrm).sum(dim=1)
+            ut = u - un[:, None] * nrm
+            V_t = torch.sqrt((ut ** 2).sum(dim=1) + 1e-12)
+            rho = Pi[:, 0] / (fluid.R * Pi[:, 1].clamp(min=10.0))
+            nu = dynamic_viscosity(fluid, Pi[:, 1]) / rho
+            return wall_function(y, V_t, nu)
 
     return wall_state
 
@@ -102,86 +105,89 @@ def build_rae2822_rans(
     `build_rae2822_rans`."""
     device = require_device("build_rae2822_rans", device)
     t0 = time.perf_counter()
-    stl = merge_points(load_surface(RAE_DAT))
-    features = DistanceField(feature_regions(stl, radius=0.05))
-    msh = build_mesh(
-        [-farfield, -farfield], [2 * farfield, 2 * farfield],
-        ("wall", stl, wall_h),
-        refinement_regions=[(features, feature_h)],
-        block_size=block_size,
-    )
-    dom = Domain(
-        msh,
-        hypercube_families=[
-            ("farfield", [(0, False), (0, True), (1, False), (1, True)]),
-        ],
-        device=device,
-    )
-    inside = points_inside(stl, dom.centers)
-    active = (~inside).astype(np.float32)
+    with span("build.mesh"):
+        stl = merge_points(load_surface(RAE_DAT))
+        features = DistanceField(feature_regions(stl, radius=0.05))
+        msh = build_mesh(
+            [-farfield, -farfield], [2 * farfield, 2 * farfield],
+            ("wall", stl, wall_h),
+            refinement_regions=[(features, feature_h)],
+            block_size=block_size,
+        )
+    with span("build.domain"):
+        dom = Domain(
+            msh,
+            hypercube_families=[
+                ("farfield", [(0, False), (0, True), (1, False), (1, True)]),
+            ],
+            device=device,
+        )
+    with span("build.blocks"):
+        inside = points_inside(stl, dom.centers)
+        active = (~inside).astype(np.float32)
 
-    T_inf = 288.15
-    p_inf = 101325.0
-    a = float(np.sqrt(1.4 * 283.0 * T_inf))
-    V = mach * a
-    al = np.deg2rad(alpha_deg)
-    P_inf = np.array(
-        [p_inf, T_inf, V * np.cos(al), V * np.sin(al)], dtype=np.float32
-    )
-    fluid = adjust_reynolds(make_fluid(), P_inf, 1.0, reynolds)
-    Rt_inf = freestream_rt(fluid, T_inf, p_inf)
+        T_inf = 288.15
+        p_inf = 101325.0
+        a = float(np.sqrt(1.4 * 283.0 * T_inf))
+        V = mach * a
+        al = np.deg2rad(alpha_deg)
+        P_inf = np.array(
+            [p_inf, T_inf, V * np.cos(al), V * np.sin(al)], dtype=np.float32
+        )
+        fluid = adjust_reynolds(make_fluid(), P_inf, 1.0, reynolds)
+        Rt_inf = freestream_rt(fluid, T_inf, p_inf)
 
-    farfield_bc = flow_bc(fluid, P_inf, device=device)
-    wall_bc = flow_bc(fluid, [p_inf, T_inf, 0.0], normal_flow=True,
-                      device=device)
-    wall_state = wall_state_fn(fluid)
+        farfield_bc = flow_bc(fluid, P_inf, device=device)
+        wall_bc = flow_bc(fluid, [p_inf, T_inf, 0.0], normal_flow=True,
+                          device=device)
+        wall_state = wall_state_fn(fluid)
 
-    def wall_pb(Pi, nrm, imd, ws):
-        if wall_model:
-            return apply_flow_bc(wall_bc, Pi, nrm, image_distances=imd,
-                                 du_dn=ws.du_dn)
-        return apply_flow_bc(wall_bc, Pi, nrm)
+        def wall_pb(Pi, nrm, imd, ws):
+            if wall_model:
+                return apply_flow_bc(wall_bc, Pi, nrm, image_distances=imd,
+                                     du_dn=ws.du_dn)
+            return apply_flow_bc(wall_bc, Pi, nrm)
 
-    def wall_fn(bdry, Pi, Rti):
-        nrm = bdry.normals
-        ws = wall_state(Pi, nrm, bdry.image_distances)
-        return wall_pb(Pi, nrm, bdry.image_distances, ws), ws.nu_t[:, None]
+        def wall_fn(bdry, Pi, Rti):
+            nrm = bdry.normals
+            ws = wall_state(Pi, nrm, bdry.image_distances)
+            return wall_pb(Pi, nrm, bdry.image_distances, ws), ws.nu_t[:, None]
 
-    def far_fn(bdry, Pi, Rti):
-        return (apply_flow_bc(farfield_bc, Pi, bdry.normals),
-                torch.full_like(Rti, Rt_inf))
+        def far_fn(bdry, Pi, Rti):
+            return (apply_flow_bc(farfield_bc, Pi, bdry.normals),
+                    torch.full_like(Rti, Rt_inf))
 
-    names = ["farfield", "wall"]
-    blocked_bcs = None
-    if use_blocks:
-        imd = block_image_distances(dom, names, device)
+        names = ["farfield", "wall"]
+        blocked_bcs = None
+        if use_blocks:
+            imd = block_image_distances(dom, names, device)
 
-        def far_fn_b(Si, nrm):
-            return torch.cat([apply_flow_bc(farfield_bc, Si[:, :4], nrm),
-                              torch.full_like(Si[:, 4:5], Rt_inf)], dim=1)
+            def far_fn_b(Si, nrm):
+                return torch.cat([apply_flow_bc(farfield_bc, Si[:, :4], nrm),
+                                  torch.full_like(Si[:, 4:5], Rt_inf)], dim=1)
 
-        def wall_fn_b(Si, nrm):
-            Pi = Si[:, :4]
-            ws = wall_state(Pi, nrm, imd)
-            return torch.cat([wall_pb(Pi, nrm, imd, ws), ws.nu_t[:, None]],
-                             dim=1)
+            def wall_fn_b(Si, nrm):
+                Pi = Si[:, :4]
+                ws = wall_state(Pi, nrm, imd)
+                return torch.cat([wall_pb(Pi, nrm, imd, ws), ws.nu_t[:, None]],
+                                 dim=1)
 
-        blocked_bcs = {"farfield": far_fn_b, "wall": wall_fn_b}
+            blocked_bcs = {"farfield": far_fn_b, "wall": wall_fn_b}
 
-    rm = build_rans_march(
-        dom, fluid, cfl=cfl, active=active,
-        flat_bcs=[("farfield", far_fn), ("wall", wall_fn)],
-        blocked_bcs=blocked_bcs,
-        high_order=high_order, use_blocks=use_blocks,
-    )
+        rm = build_rans_march(
+            dom, fluid, cfl=cfl, active=active,
+            flat_bcs=[("farfield", far_fn), ("wall", wall_fn)],
+            blocked_bcs=blocked_bcs,
+            high_order=high_order, use_blocks=use_blocks,
+        )
 
-    P0 = np.tile(P_inf, (dom.ncells, 1))
-    P0[inside, 2:] = 0.0
-    Rt0 = np.full(dom.ncells, Rt_inf, np.float32)
-    P0, Rt0 = rm.apply_bcs(torch.as_tensor(P0, device=device),
-                           torch.as_tensor(Rt0, device=device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        P0 = np.tile(P_inf, (dom.ncells, 1))
+        P0[inside, 2:] = 0.0
+        Rt0 = np.full(dom.ncells, Rt_inf, np.float32)
+        P0, Rt0 = rm.apply_bcs(torch.as_tensor(P0, device=device),
+                               torch.as_tensor(Rt0, device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     return Rae2822RansCase(
         dom=dom, fluid=fluid, P_inf=P_inf, Rt_inf=Rt_inf, mach=mach,
         alpha=alpha_deg, reynolds=reynolds, step=rm.step, march=rm.march,

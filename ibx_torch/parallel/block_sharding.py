@@ -48,6 +48,7 @@ from ..topology.blocked_bc import local_ghost_bc
 from ..topology.blocks import BlockTables, build_block_tables_raw
 from ..topology.domain import Domain
 from ..utils.graphs import Graphs
+from ..utils.monitor import device_span
 from .sharding import DeviceMesh, _Ctx
 
 
@@ -98,14 +99,18 @@ def _subset_inputs(dom: Domain, glob_blocks: np.ndarray, B_sub: int) -> dict:
 
 class _LocalGrid:
     """A started halo exchange of own grids; `wait` gives the local grid
-    [own | halo slots | dump], the dump block (finite, inert) last."""
+    [own | halo slots | dump], the dump block (finite, inert) last, and
+    closes the exchange's ``march.halo`` device span (``halo``, entered
+    where the exchange started)."""
 
-    def __init__(self, own, pending):
-        self._own, self._pending = own, pending
+    def __init__(self, own, pending, halo):
+        self._own, self._pending, self._halo = own, pending, halo
 
     def wait(self):
         own = self._own
-        return torch.cat([own] + self._pending.wait() + [own[:1]], dim=0)
+        local = torch.cat([own] + self._pending.wait() + [own[:1]], dim=0)
+        self._halo.__exit__(None, None, None)
+        return local
 
 
 class ShardedBlockDomain:
@@ -491,12 +496,15 @@ class ShardedBlockDomain:
     def exchange_start(self, own):
         """Start the halo exchange of own grids [chunk, ...]; the handle's
         ``wait()`` returns the local grid [B_loc, ...] = [own | halo slots
-        | dump]."""
+        | dump]. The device span ``march.halo`` runs from here to the
+        end of ``wait()``."""
         P, p = self.P, self.mesh.rank
+        halo = device_span("march.halo", own.device)
+        halo.__enter__()
         # rank q sends to (q - o): receiver p hears from p + o
         sends = [(own.index_select(0, self._send_dev[o]), (p - o) % P,
                   (p + o) % P) for o in self.offs]
-        return _LocalGrid(own, self.mesh.exchange_start(sends))
+        return _LocalGrid(own, self.mesh.exchange_start(sends), halo)
 
     def exchange(self, own):
         """Own grids [chunk, ...] -> local grid [B_loc, ...]."""

@@ -34,6 +34,7 @@ from ..physics.fluid import (
 from ..physics.turbulence import shear_rate, wray_agarwal
 from ..solve.euler import euler_rhs
 from ..utils.graphs import Graphs, march_loop
+from ..utils.monitor import device_span
 
 
 @dataclasses.dataclass
@@ -97,51 +98,53 @@ def rans_rhs_grid(bt, fluid, S3, *, cfl: float, high_order: bool = True,
     R_flow, dta, (du_grids, nu3) = euler_rhs_grid(
         bt, fluid, P3, with_dt=True, cfl=cfl,
         high_order=high_order, viscous=True, mu_t3=mu_t3)
-    vg = [[du_grids[j][..., 2 + i] for j in range(nd)]
-          for i in range(nd)]
-    S = shear_rate(vg)
-    dRt = [cell_gradient_grid(bt, Rt3, d) for d in range(nd)]
-    gS = [cell_gradient_grid(bt, S[..., None], d) for d in range(nd)]
-    wa = wray_agarwal(Rt_pos[..., 0], S, torch.cat(dRt, dim=-1),
-                      torch.cat(gS, dim=-1))
-    nu_lam3 = dynamic_viscosity(fluid, P3[..., 1]) / rho3[..., 0]
-    nu_eff3 = nu_lam3 + wa["nu_R"]
+    with device_span("march.turbulence", S3.device):
+        vg = [[du_grids[j][..., 2 + i] for j in range(nd)]
+              for i in range(nd)]
+        S = shear_rate(vg)
+        dRt = [cell_gradient_grid(bt, Rt3, d) for d in range(nd)]
+        gS = [cell_gradient_grid(bt, S[..., None], d) for d in range(nd)]
+        wa = wray_agarwal(Rt_pos[..., 0], S, torch.cat(dRt, dim=-1),
+                          torch.cat(gS, dim=-1))
+        nu_lam3 = dynamic_viscosity(fluid, P3[..., 1]) / rho3[..., 0]
+        nu_eff3 = nu_lam3 + wa["nu_R"]
 
-    def face_T(Wo, Wn, ho, hn):
-        """Upwinded MUSCL advection of Rt (JST-blended) minus its
-        diffusion, at one face."""
-        Rto, Rtn = Wo[..., 0:1], Wn[..., 0:1]
-        go, gn = Wo[..., 1:2], Wn[..., 1:2]
-        Do, Dn = Wo[..., 2:3], Wn[..., 2:3]
-        uo, un_ = Wo[..., 3:4], Wn[..., 3:4]
-        no, nn = Wo[..., 4:5], Wn[..., 4:5]
-        down, dneigh = ho / 2, hn / 2
-        grad_f = (Rtn - Rto) / (down + dneigh)
-        slope_o = (2 * go - grad_f) * down
-        slope_n = (2 * gn - grad_f) * dneigh
-        lim = ops.minmod(slope_n, slope_o)
-        RtL = Rto + lim
-        RtR = Rtn - lim
-        D = torch.maximum(Do, Dn).clamp(min=1e-7)
-        uf_c = (Rto * dneigh + Rtn * down) / (down + dneigh)
-        if high_order:
-            uf_c = uf_c + (go * down - gn * dneigh) / 8
-        RtL = RtL * D + (1.0 - D) * uf_c
-        RtR = RtR * D + (1.0 - D) * uf_c
-        uf = (uo * dneigh + un_ * down) / (down + dneigh)
-        F_adv = torch.where(uf >= 0.0, RtL, RtR) * uf
-        nu_f = (no * dneigh + nn * down) / (down + dneigh)
-        return F_adv - nu_f * grad_f
+        def face_T(Wo, Wn, ho, hn):
+            """Upwinded MUSCL advection of Rt (JST-blended) minus its
+            diffusion, at one face."""
+            Rto, Rtn = Wo[..., 0:1], Wn[..., 0:1]
+            go, gn = Wo[..., 1:2], Wn[..., 1:2]
+            Do, Dn = Wo[..., 2:3], Wn[..., 2:3]
+            uo, un_ = Wo[..., 3:4], Wn[..., 3:4]
+            no, nn = Wo[..., 4:5], Wn[..., 4:5]
+            down, dneigh = ho / 2, hn / 2
+            grad_f = (Rtn - Rto) / (down + dneigh)
+            slope_o = (2 * go - grad_f) * down
+            slope_n = (2 * gn - grad_f) * dneigh
+            lim = ops.minmod(slope_n, slope_o)
+            RtL = Rto + lim
+            RtR = Rtn - lim
+            D = torch.maximum(Do, Dn).clamp(min=1e-7)
+            uf_c = (Rto * dneigh + Rtn * down) / (down + dneigh)
+            if high_order:
+                uf_c = uf_c + (go * down - gn * dneigh) / 8
+            RtL = RtL * D + (1.0 - D) * uf_c
+            RtR = RtR * D + (1.0 - D) * uf_c
+            uf = (uo * dneigh + un_ * down) / (down + dneigh)
+            F_adv = torch.where(uf >= 0.0, RtL, RtR) * uf
+            nu_f = (no * dneigh + nn * down) / (down + dneigh)
+            return F_adv - nu_f * grad_f
 
-    T3 = wa["S"]
-    for d in range(nd):
-        W = torch.cat([Rt3, dRt[d], nu3, P3[..., 2 + d:3 + d],
-                       nu_eff3[..., None]], dim=-1)
-        T3 = T3 - face_accumulate(bt, d, W, face_T, 1, [1.0])[..., 0]
+        T3 = wa["S"]
+        for d in range(nd):
+            W = torch.cat([Rt3, dRt[d], nu3, P3[..., 2 + d:3 + d],
+                           nu_eff3[..., None]], dim=-1)
+            T3 = T3 - face_accumulate(bt, d, W, face_T, 1, [1.0])[..., 0]
 
-    # local dt: acoustic bound from the fused pass + viscous bound
-    bound = _dt_bound(bt, cfl / dta, nu_lam3 + Rt_pos[..., 0])
-    return R_flow, T3, cfl / bound
+        # local dt: acoustic bound from the fused pass + viscous bound
+        bound = _dt_bound(bt, cfl / dta, nu_lam3 + Rt_pos[..., 0])
+        dt3 = cfl / bound
+    return R_flow, T3, dt3
 
 
 def rans_rk2_grid(bt, fluid, S3, apply_bcs3, *, cfl: float,
@@ -161,18 +164,22 @@ def rans_rk2_grid(bt, fluid, S3, apply_bcs3, *, cfl: float,
     P3 = S3[..., :nch]
     Rt3 = S3[..., nch:nch + 1]
     R0, T0, dt = rhs_fn(S3)
-    if active3 is not None:
-        dt = dt * active3
-    Q0 = primitive2state(fluid, P3)
-    P1 = physicality_guard(
-        state2primitive(fluid, Q0 + dt[..., None] * R0))
-    Rt1 = Rt3 + dt[..., None] * T0[..., None]
-    S1 = apply_bcs3(torch.cat([P1, Rt1], dim=-1))
+    with device_span("march.update", S3.device):
+        if active3 is not None:
+            dt = dt * active3
+        Q0 = primitive2state(fluid, P3)
+        P1 = physicality_guard(
+            state2primitive(fluid, Q0 + dt[..., None] * R0))
+        Rt1 = Rt3 + dt[..., None] * T0[..., None]
+        S1 = torch.cat([P1, Rt1], dim=-1)
+    S1 = apply_bcs3(S1)
     R1, T1, _ = rhs_fn(S1)
-    P2 = physicality_guard(state2primitive(
-        fluid, Q0 + dt[..., None] * (R0 + R1) / 2))
-    Rt2 = Rt3 + dt[..., None] * (T0 + T1)[..., None] / 2
-    S2 = apply_bcs3(torch.cat([P2, Rt2.clamp(min=0.0)], dim=-1))
+    with device_span("march.update", S3.device):
+        P2 = physicality_guard(state2primitive(
+            fluid, Q0 + dt[..., None] * (R0 + R1) / 2))
+        Rt2 = Rt3 + dt[..., None] * (T0 + T1)[..., None] / 2
+        S2 = torch.cat([P2, Rt2.clamp(min=0.0)], dim=-1)
+    S2 = apply_bcs3(S2)
     resnorm = (R0[..., 0] * (active3 if active3 is not None
                              else 1.0)).abs().max()
     return S2, resnorm

@@ -236,6 +236,55 @@ def test_march_spans_on_an_eager_step():
     assert len(_by_name(rec["host"])["march.boundary"]) == 2
 
 
+def test_rans_spans_on_an_eager_step():
+    """The RANS block march: its build's three spans, and a step's
+    closure, wall function and stage updates, one of each a stage."""
+    from ibx_torch.cases import build_rae2822_rans
+    with monitor.tracing():
+        case = build_rae2822_rans(wall_h=8e-2, feature_h=4e-2, block_size=8,
+                                  device="cpu")
+    host = _by_name(monitor.records()["host"])
+    total = sum(s["t1_ns"] - s["t0_ns"] for k in
+                ("build.mesh", "build.domain", "build.blocks")
+                for s in host[k]) / 1e9
+    assert total == pytest.approx(case.build_seconds, rel=0.05)
+    with monitor.tracing():
+        case.march(case.P0, case.Rt0, 1)
+    dev = _by_name(monitor.records()["device"])
+    step = dev["march.step"]
+    assert len(step) == 1
+    for name in ("march.rhs", "march.turbulence", "march.ghost_bc",
+                 "march.wall_function", "march.update"):
+        assert len(dev[name]) == 2, name
+    ids = {k: {s["id"] for s in dev[k]} for k in dev}
+    assert {s["parent"] for s in dev["march.wall_function"]} == \
+        ids["march.ghost_bc"]
+    assert {s["parent"] for s in dev["march.turbulence"]
+            + dev["march.rhs"] + dev["march.update"]} == ids["march.step"]
+    # the closure's cell gradients and transport faces carry their 2:1
+    # glue inside it
+    assert {s["parent"] for s in dev["march.two_to_one"]} == \
+        ids["march.rhs"] | ids["march.turbulence"]
+
+
+def test_halo_span_on_a_one_rank_sharded_step():
+    """`sharded_step` exchanges before each RHS and each ghost BC, at one
+    rank too: four ``march.halo`` spans a step."""
+    from ibx_torch.cases import build_rae2822_block_sharded
+    from ibx_torch.parallel import one_rank_group
+    with one_rank_group("gloo"):
+        sbd, _, P, _ = build_rae2822_block_sharded(
+            1, wall_h=8e-2, feature_h=4e-2, cfl=0.5, device="cpu")
+        with monitor.tracing():
+            sbd.march(P, 1)
+        dev = _by_name(monitor.records()["device"])
+    assert len(dev["march.step"]) == 1 and len(dev["march.halo"]) == 4
+    step = dev["march.step"][0]
+    for s in dev["march.halo"]:
+        assert s["parent"] == step["id"]
+        assert step["t0_ns"] <= s["t0_ns"] <= s["t1_ns"] <= step["t1_ns"]
+
+
 def test_spans_share_the_profilers_clock(tmp_path):
     from torch.profiler import ProfilerActivity, profile
     x = torch.randn(200, 200)
