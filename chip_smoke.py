@@ -52,14 +52,22 @@ ends the run with a non-zero exit:
      cells): phase 35 on its tables, then, restarted from the converged
      state of tests/data/rae2822_cp_flagship.npz, 2 warm-up steps, then
      two windows of 500 steps of `case.march` timed with CUDA events and
-     the host clock; the 2D passes A and B must have run twice each a step
-     and no 3D kernel, Cl must lie in the committed band and the windows'
-     mean wall Cp must reproduce the oracle's phase mean;
+     the host clock; the 2D passes A and B and the 2:1 interface kernels
+     must have run twice each a step and no 3D kernel, Cl must lie in the
+     committed band and the windows' mean wall Cp must reproduce the
+     oracle's phase mean;
  10. 2D breakdown: the 2D kernels' rows of phase 7 (time, plain time,
-     bound, registers, spills, shared memory) at the flagship's shapes,
-     the parts of one step (CUDA events and the host's enqueue time over
-     20 calls each) and the card's busy share of a 5-step window from
-     `torch.profiler`;
+     bound, registers, spills, shared memory) at the flagship's shapes;
+     in a process of its own (`python3 chip_smoke.py --phase 10`), the 2:1
+     interface kernels (`interface_a_2d`, `interface_b_2d`) against their
+     plain versions at bs 4 and 8 (RAE2822 at wall_h=8e-2) and on the
+     flagship's tables, their rows (time against the byte bound), and the
+     kernels of two RHS evaluations and of one eager flagship step by
+     counter and by name in a profiler trace (an RHS launches the two
+     interface kernels and the two passes and nothing else: no glue
+     `CatArrayBatchedCopy`); then the parts of one step (CUDA events and
+     the host's enqueue time over 20 calls each) and the card's busy share
+     of a 5-step window from `torch.profiler`;
  11. gather step parity: `build_rae2822(wall_h=8e-2, feature_h=4e-2,
      cfl=0.7, use_blocks=False)` on the card and on the CPU, one
      `case.step` of the generic gather march (`solve.euler.rk2_step` on
@@ -420,8 +428,12 @@ def pass_b_2d_flops(bs):
     return (2 + 2 / bs) * (230 + 4) + 20
 
 
-# launches a step of the 2D block march on the kernel route
-STEP2D = dict(euler_pass_a_2d=2, euler_pass_b_2d=2)
+# launches a step of the 2D block march on the kernel route: each RHS
+# evaluation launches the 2:1 interface kernels and the two passes
+STEP2D = dict(euler_pass_a_2d=2, euler_pass_b_2d=2, interface_a_2d=2,
+              interface_b_2d=2)
+# launches of one RHS evaluation on it
+RHS2D = {k: v // 2 for k, v in STEP2D.items()}
 
 
 def counts(n=1, **per_step):
@@ -629,8 +641,8 @@ def kernel_resources():
     for line in K.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"((?:euler_pass_[ab](?:_2d)?|rk2_update|stamp)"
-                          r"_kernel)"
+            k = re.search(r"((?:euler_pass_[ab](?:_2d)?|interface_[ab]_2d"
+                          r"|rk2_update|stamp)_kernel)"
                           r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
             args = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
             name = k.group(1) + ("<" + ", ".join(
@@ -839,6 +851,186 @@ def kernel2d_rows(case, P3, launches, errs):
     return rows
 
 
+def interface2d_parity(case, P3, label):
+    """Phase 10's parity on one mesh: the 2D interface kernels against
+    their plain versions on the same CUDA tensors (pass A with and without
+    dt, pass B in both `high_order` under the flow's sensor and a random
+    one). Returns each kernel's max abs error (pass A with dt, pass B
+    high-order under the flow's sensor) and pass B's operands."""
+    from ibx_torch.ops import kernels as K
+
+    bt, fl = case.bt, case.fluid
+    tabs = (bt.h, bt.ifc_rows)
+    log(f"[ifc2d] {label}: {bt.n_blocks} blocks, bs={bt.block_size}, "
+        f"{bt.ifc_rows.shape[0]} interface rows (per (d, s) side "
+        f"{interface_sides(bt)})")
+    errs = {}
+    for with_dt in (True, False):
+        out = K.interface_a_2d(fl, P3, *tabs, with_dt=with_dt)
+        ref = K.interface_a_2d_ref(fl, P3, *tabs, with_dt=with_dt)
+        w = out.shape[-1]
+        check(f"interface_a_2d rows (with_dt={with_dt}; bit-equal: "
+              f"{torch.equal(out, ref)})",
+              chan_err(ref.reshape(-1, w), out.reshape(-1, w)), TOL["du"])
+        if with_dt:
+            errs["interface_a_2d"] = max_abs(ref, out)
+            va = out
+    du_x, du_y, nu, _ = K.euler_pass_a_2d(fl, P3, bt.meta, bt.nbr_table,
+                                          bt.fold_rows, va, with_dt=True,
+                                          cfl=case.cfl)
+    rng = np.random.default_rng(9)
+    nu_r = torch.as_tensor((10.0 ** rng.uniform(-7, 0, tuple(nu.shape)))
+                           .astype(np.float32), device=P3.device)
+    for ho in (True, False):
+        for sensor, n_ in (("flow", nu), ("random", nu_r)):
+            out = K.interface_b_2d(fl, P3, du_x, du_y, n_, *tabs,
+                                   high_order=ho)
+            ref = K.interface_b_2d_ref(fl, P3, du_x, du_y, n_, *tabs,
+                                       high_order=ho)
+            check(f"interface_b_2d rows (high_order={ho}, {sensor} sensor)",
+                  chan_err(ref.reshape(-1, 4), out.reshape(-1, 4)),
+                  TOL["R"])
+            if ho and sensor == "flow":
+                errs["interface_b_2d"] = max_abs(ref, out)
+    return errs, (du_x, du_y, nu)
+
+
+def interface2d_rows(case, P3, errs, operands):
+    """Phase 10's rows for the interface kernels at the flagship's shapes:
+    device time (CUDA events over 20 launches queued behind a sleep,
+    `device_ms`; back to back in brackets), the plain version's time, the
+    byte bound (one read of each edge cell's operands and one write of each
+    row, the row table and h besides), registers and shared memory."""
+    from ibx_torch.ops import kernels as K
+
+    bt, fl = case.bt, case.fluid
+    V, bs = bt.ifc_rows.shape[0], bt.block_size
+    tabs = (bt.h, bt.ifc_rows)
+    du_x, du_y, nu = operands
+    lanes, table = V * bs, V * (6 * 4 + 4)
+
+    def pass_a(dt, plain=False):
+        fn = K.interface_a_2d_ref if plain else K.interface_a_2d
+        return lambda: fn(fl, P3, *tabs, with_dt=dt)
+
+    def pass_b(plain=False):
+        fn = K.interface_b_2d_ref if plain else K.interface_b_2d
+        return lambda: fn(fl, P3, du_x, du_y, nu, *tabs, high_order=True)
+
+    variants = {
+        "interface_a_2d": ("with_dt", pass_a(True), pass_a(True, True),
+                           lanes * (16 + 4 * 7) + table,
+                           "interface_a_2d_kernel<7>"),
+        "interface_a_2d no dt": ("without dt", pass_a(False), None,
+                                 lanes * (16 + 4 * 6) + table,
+                                 "interface_a_2d_kernel<6>"),
+        "interface_b_2d": ("high_order", pass_b(), pass_b(True),
+                           lanes * (16 + 16 + 4 + 16) + table,
+                           "interface_b_2d_kernel"),
+    }
+    res = kernel_resources()
+    rows = []
+    log(f"[ifc2d] {V} interface rows x {bs} lanes ({lanes} threads), CUDA "
+        f"events over 20 launches queued behind a sleep (back to back, the "
+        f"host's launch path included, in brackets); byte bound at "
+        f"{PEAK_BYTES_S / 1e12:g} TB/s")
+    for name, (var, fk, fr, nbytes, inst) in variants.items():
+        ms = device_ms(fk)
+        host_paced = time_ms(fk)
+        plain = time_ms(fr, reps=5) if fr is not None else None
+        b_ms = nbytes / PEAK_BYTES_S * 1e3
+        r = res.get(inst, {})
+        log(f"  {name} ({var}): {ms:.4f} ms ({host_paced:.4f}), plain "
+            + (f"{plain:.3f} ms" if plain is not None else "not timed")
+            + f", bound {b_ms:.5f} ms ({nbytes} bytes), {b_ms / ms:.1%} of "
+            f"bound, library none; {inst}: {r.get('registers')} registers, "
+            f"spills {r.get('spill')}, {r.get('static_smem')} bytes static "
+            f"smem (no dynamic)")
+        if name in STEP2D:
+            rows.append(dict(name=name, route="cuda",
+                             source="ibx_torch/csrc/interface_2d.cu",
+                             replaces="none (torch-op interface_corrections,"
+                                      " nd = 2)",
+                             launches=STEP2D[name], max_abs_err=errs[name],
+                             ms=ms, plain_ms=plain, bound_ms=b_ms,
+                             bound_by="bytes", library_ms=None, variant=var,
+                             registers=r.get("registers"),
+                             smem_bytes=r.get("static_smem", 0)))
+    return rows
+
+
+def interface_phase(root, dev, smi):
+    """Phase 10's interface checks (``--phase 10``, a process of its own:
+    its `torch.profiler` session must not share the main run's): the 2D
+    interface kernels against their plain versions at bs 4 and 8
+    (RAE2822 at wall_h=8e-2) and on the flagship's tables (bs 16), their
+    times against the byte bound on the flagship, and the kernels one RHS
+    evaluation and one eager flagship step launch, by counter and by name
+    in a profiler trace: four in an RHS (the two interface kernels and the
+    two passes, so no glue `CatArrayBatchedCopy`), two of each interface
+    kernel in a step. Returns the interface kernels' rows."""
+    from ibx_torch.cases import build_rae2822
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.block_ops import euler_rhs_grid, to_blocks
+
+    t0 = time.perf_counter()
+    for bs in (4, 8):
+        c = build_rae2822(device=dev, block_size=bs, wall_h=8e-2,
+                          feature_h=4e-2, cfl=0.7)
+        interface2d_parity(c, to_blocks(c.bt, perturbed2d(c)),
+                           f"RAE2822 wall_h=8e-2 ({c.dom.ncells} cells)")
+    del c
+    case = build_rae2822(**RAE_FLAGSHIP)
+    bt, fl = case.bt, case.fluid
+    assert case.dom.ncells == RAE_CELLS and bt.block_size == 16
+    P = case.apply_bcs(torch.as_tensor(np.load(root / RAE_ORACLE)["P"],
+                                       device=dev))
+    P3 = to_blocks(bt, P).contiguous()
+    errs, operands = interface2d_parity(
+        case, to_blocks(bt, perturbed2d(case)),
+        f"the flagship ({RAE_CELLS} cells, perturbed)")
+    _, operands = interface2d_parity(
+        case, P3, "the flagship (the oracle's converged state)")
+    rows = interface2d_rows(case, P3, errs, operands)
+
+    # the kernels of two RHS evaluations and of one eager step, by name
+    case.march(P, 1, graph=False)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for with_dt in (True, False):
+            euler_rhs_grid(bt, fl, P3, with_dt=with_dt, cfl=case.cfl)
+        torch.cuda.synchronize()
+        rhs_launches = dict(K.launches)
+        K.reset_launches()
+        case.march(P, 1, graph=False)
+        torch.cuda.synchronize()
+    step_launches = dict(K.launches)
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    rhs_ev, step_ev = ev[:8], ev[8:]
+    rhs_names = kernel_name_counts(rhs_ev)
+    cats = [sum("CatArrayBatchedCopy" in e.name for e in x)
+            for x in (rhs_ev, step_ev)]
+    log(f"[ifc2d] two RHS evaluations (with and without dt): "
+        f"{len(rhs_ev)} device kernels, by name {rhs_names}, by counter "
+        f"{rhs_launches}; CatArrayBatchedCopy {cats[0]}")
+    log(f"[ifc2d] one eager flagship step: {len(step_ev)} device "
+        f"activities, by name {kernel_name_counts(step_ev)}, by counter "
+        f"{step_launches}; CatArrayBatchedCopy {cats[1]} (the glue's are "
+        f"gone: the RHS launches none)")
+    assert rhs_launches == counts(2, **RHS2D), rhs_launches
+    assert rhs_names == rhs_launches, (rhs_names, rhs_launches)
+    assert len(ev) >= 8 and cats[0] == 0
+    assert step_launches == counts(**STEP2D), step_launches
+    assert kernel_name_counts(step_ev) == step_launches
+    log(f"[ifc2d] phase 10's interface checks took "
+        f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    return rows
+
+
 def rae2822_phases(root, dev, smi):
     """Phases 8-10 and 35: the 2D arm. Its march runs the 2D passes A and
     B (`rhs_cs.euler_rhs_grid_2d`); returns their rows of the kernels line
@@ -941,6 +1133,16 @@ def rae2822_phases(root, dev, smi):
     # 10. 2D breakdown: the kernels' rows of phase 7, then the parts
     P3 = to_blocks(bt, P)
     rows2d = kernel2d_rows(case, P3, STEP2D, errs2d)
+    # the interface kernels' checks and rows, in a process of their own
+    r = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                        "--phase", "10"], cwd=root, capture_output=True,
+                       text=True)
+    log(r.stdout.rstrip())
+    if r.returncode != 0:
+        log(r.stderr)
+        raise AssertionError(f"phase 10's interface checks exited "
+                             f"{r.returncode}")
+    rows2d += json.loads(r.stdout.strip().splitlines()[-1])["interface_rows"]
     R0, dt3, _ = euler_rhs_grid(bt, fl, P3, with_dt=True, cfl=case.cfl)
     dt = (dt3 * case.active3)[..., None]
     Q0 = primitive2state(fl, P3)
@@ -1061,8 +1263,7 @@ def gather_phases(root, dev, smi, blk):
           scaled_err(R_g, R_b), GVB_RHS_TOL)
     assert float((R_g - euler_rhs(part, fl, P)).abs().max()) > 0
     # two RHS calls and five eager steps on the route; the gather side none
-    assert dict(K.launches) == counts(2 + 2 * 5, euler_pass_a_2d=1,
-                                      euler_pass_b_2d=1), K.launches
+    assert dict(K.launches) == counts(2 + 2 * 5, **RHS2D), K.launches
     del gg, bk
 
     # 13. the gather march at full width
@@ -1590,8 +1791,7 @@ def solver_phases(root, dev, smi):
     check("solve ratio (relative)",
           abs(float(rg) - float(rc)) / abs(float(rc)), PI_TOL)
     # the card's newton_map: its explicit bound on the 2D kernel route
-    assert dict(K.launches) == counts(euler_pass_a_2d=1, euler_pass_b_2d=1), \
-        K.launches
+    assert dict(K.launches) == counts(**RHS2D), K.launches
     K.reset_launches()
     del bg, bcpu, gfn, cfn, Ac, Ag, Qn, Qnc
 
@@ -1817,7 +2017,7 @@ def solver_phases(root, dev, smi):
     prow = solver_graph_phase(
         f"flagship point-implicit step nd=2 ({RAE_CELLS} cells, frozen "
         f"limiter)", pi_call(case, gens), P,
-        want=dict(euler_pass_a_2d=1, euler_pass_b_2d=1), reset=reseed,
+        want=RHS2D, reset=reseed,
         trace_eager=False)
     gen = gens[1]
     gen.manual_seed(0)
@@ -1855,7 +2055,7 @@ def solver_phases(root, dev, smi):
     solver_graph_phase(
         f"flagship point-implicit step nd=2 ({RAE_CELLS} cells, frozen "
         f"limiter, default generator)", pi_call(case, None), P,
-        want=dict(euler_pass_a_2d=1, euler_pass_b_2d=1), trace_eager=False)
+        want=RHS2D, trace_eager=False)
     assert len(bt._graphs.loops) == 1, bt._graphs.loops
     assert no_3d(K.launches), K.launches
     return dict(ms_cycle=ms["fas"][0], ms_smooth=ms["smooth"][0],
@@ -2205,8 +2405,7 @@ def _sharded_rank(device, smi, wing_dir):
                SHARD_RES_RTOL)
     if dev.type != "cuda":
         n_route = 0
-    assert dict(K.launches) == counts(n_route, euler_pass_a_2d=1,
-                                      euler_pass_b_2d=1), K.launches
+    assert dict(K.launches) == counts(n_route, **RHS2D), K.launches
     K.reset_launches()
 
     # the gather march (no kernel), from the sharded case's initial state,
@@ -2837,7 +3036,11 @@ def kernel_name_counts(events):
     counts = dict.fromkeys(K.launches, 0)
     for e in events:
         n = e.name
-        if "euler_pass_a_2d_kernel" in n:
+        if "interface_a_2d_kernel" in n:
+            counts["interface_a_2d"] += 1
+        elif "interface_b_2d_kernel" in n:
+            counts["interface_b_2d"] += 1
+        elif "euler_pass_a_2d_kernel" in n:
             counts["euler_pass_a_2d"] += 1
         elif "euler_pass_b_2d_kernel" in n:
             counts["euler_pass_b_2d"] += 1
@@ -2853,17 +3056,37 @@ def kernel_name_counts(events):
     return counts
 
 
+# sleep kernels that lead each `device_trace` session: a process's later
+# `torch.profiler` sessions lose their first device records (up to about 20
+# seen), which must be the lead-in's and not the traced step's
+LEAD_IN = 64
+
+
 def device_trace(fn, n_steps):
     """One `torch.profiler` trace of the card's activities (not the host's
     operators: an eager point-implicit step issues some 10^5 of them) over
-    ``fn`` (``n_steps`` steps): (device busy ms a step, device activities
-    a step, launches a step of each kernel by name)."""
+    ``fn`` (``n_steps`` steps), after LEAD_IN short sleep kernels and a
+    synchronize, which are dropped: (device busy ms a step, device
+    activities a step, launches a step of each kernel by name)."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    lead = 0
+    while lead < len(ev) and "spin_kernel" in ev[lead].name:
+        lead += 1
+    assert lead > 0, ("no lead-in record first: "
+                      f"{[e.name[:60] for e in ev[:3]]}")
+    if lead < LEAD_IN:
+        log(f"  (torch.profiler lost {LEAD_IN - lead} of the {LEAD_IN} "
+            f"lead-in records)")
+    ev = ev[lead:]
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     assert ev and busy > 0, "torch.profiler recorded no device time"
     named = {k: v / n_steps for k, v in kernel_name_counts(ev).items()}
@@ -3437,21 +3660,31 @@ def main() -> int:
     return 0
 
 
-def trace_main() -> int:
-    """Phase 34 alone (``--phase 34``)."""
+def phase_main(phase: str) -> int:
+    """One phase alone, in a process of its own (``--phase 34``, or
+    ``--phase 10``'s interface checks, which print the interface kernels'
+    rows as the last line)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
     from ibx_torch.ops import kernels as K
     K.build()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    trace_phase(torch.device("cuda"), smi.splitlines()[0])
+    dev, smi = torch.device("cuda"), smi.splitlines()[0]
+    if phase == "34":
+        trace_phase(dev, smi)
+    else:
+        rows = interface_phase(root, dev, smi)
+        print(json.dumps({"interface_rows": rows}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(trace_main() if sys.argv[1:] == ["--phase", "34"] else main())
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["34"], ["10"]):
+        sys.exit(phase_main(sys.argv[2]))
+    sys.exit(main())

@@ -18,9 +18,9 @@
 //   sf_d = (sf_plus + sf_minus)/h + c          wave-speed sum (with dt);
 // then nu = max(1e-7, max_d (1e-7 + |G_d|)/(1e-7 + U_d)), the JST sensor,
 // and dt = cfl/(sf_0 + sf_1), the local time step. A one-sided boundary
-// side (bnd) mirrors the own edge. The corrections come compact, as the
-// glue computes them before the launch (`block_ops.interface_corrections`
-// on the state's edge planes): `rows` [B, 4] gives a block's row of
+// side (bnd) mirrors the own edge. The corrections come compact, as
+// interface_a_2d (interface_2d.cu) computes them before the launch from
+// the state's edge cells: `rows` [B, 4] gives a block's row of
 // `vals` [V, bs, K] for side s of dim d at 2d + s, or -1; a row's index
 // along the edge is y for d = 0 and x for d = 1, its K = 7 (6 without dt)
 // channels [du (4), G, U (, sf)]. Folding them here keeps G, U and sf out
@@ -60,79 +60,11 @@
 // correctly rounded quotient away from the subnormal range, in 3
 // instructions where an IEEE divide takes a dozen and a branch.
 
-#include <cuda_runtime.h>
+#include "faces_2d.cuh"
 
 namespace {
 
-// The tables of one mesh block: h_d (0, 1), edge_valid[d][s] (3 + 2d + s),
-// bnd[d][s] (9 + 2d + s), the neighbor of side (d, s) and the fold's rows.
-struct Block2 {
-  float m[16];
-  int nb[4];
-  int row[4];
-};
-
-__device__ __forceinline__ void load_block(Block2& bi,
-                                           const float* __restrict__ meta,
-                                           const int* __restrict__ nbr,
-                                           const int* __restrict__ rows,
-                                           int b) {
-  for (int i = threadIdx.x; i < 24; i += blockDim.x) {
-    if (i < 16) {
-      bi.m[i] = meta[16LL * b + i];
-    } else if (i < 20) {
-      bi.nb[i - 16] = nbr[8LL * b + (i - 16)];
-    } else {
-      bi.row[i - 20] = rows[4LL * b + (i - 20)];
-    }
-  }
-}
-
-// Source cell (block, y, x) of the halo slot of side q = 2d + s at lateral
-// index j: the neighbor block's opposite edge cell, or the own edge cell
-// on a bnd side.
-template <int BS>
-__device__ __forceinline__ long long halo_cell(const Block2& bi, int b,
-                                               int q, int j) {
-  const int d = q >> 1, s = q & 1;
-  const bool bnd = bi.m[9 + q] > 0.f;
-  const int e = bnd ? (s ? BS - 1 : 0) : (s ? 0 : BS - 1);
-  const long long src = bnd ? b : bi.nb[q];
-  return (src * BS + (d == 0 ? j : e)) * BS + (d == 0 ? e : j);
-}
-
-// Tile slot of the halo cell of side q at lateral index j.
-template <int BS>
-__device__ __forceinline__ int halo_slot(int q, int j) {
-  constexpr int TW = BS + 2;
-  return q == 0   ? (j + 1) * TW
-         : q == 1 ? (j + 1) * TW + BS + 1
-         : q == 2 ? j + 1
-                  : (BS + 1) * TW + j + 1;
-}
-
-// x / y, correctly rounded, from r = RN(1/y): q = RN(x r) is within an
-// ulp of x / y, the remainder x - q y is exact in one FMA, and one
-// correction with r rounds the quotient correctly (Markstein's theorem;
-// outside the subnormal and overflow ranges, which no finite state
-// reaches here).
-__device__ __forceinline__ float div_by(float x, float y, float r) {
-  const float q = __fmul_rn(x, r);
-  return __fmaf_rn(__fmaf_rn(-q, y, x), r, q);
-}
-
-// The face value (a h + b h)/(h + h) m, each operation rounded once (r2 =
-// RN(1/(h + h))).
-__device__ __forceinline__ float face_avg(float a, float b, float h, float h2,
-                                          float r2, float m) {
-  return __fmul_rn(
-      div_by(__fadd_rn(__fmul_rn(a, h), __fmul_rn(b, h)), h2, r2), m);
-}
-
-// The sound speed sqrt(gR max(T, 10)), each operation rounded once.
-__device__ __forceinline__ float sound(float gR, float T) {
-  return __fsqrt_rn(__fmul_rn(gR, fmaxf(T, 10.f)));
-}
+using namespace ibx;
 
 template <int BS, bool DT>
 __global__ void __launch_bounds__(BS * BS)

@@ -14,9 +14,9 @@
 // dim where it lies on one, added before the two dims are summed, as the
 // torch-op body adds it. A face on a 2:1 block edge (edge_valid = 0) is
 // zero and not evaluated; a one-sided boundary side (bnd) mirrors the own
-// edge. The corrections come compact from the glue
-// (`block_ops.interface_corrections` on the edge planes of P, du_d and
-// nu): `rows` [B, 4] gives a block's row of `vals` [V, bs, 4] for side s
+// edge. The corrections come compact from interface_b_2d
+// (interface_2d.cu, on the edge cells of P, du_d and nu): `rows` [B, 4]
+// gives a block's row of `vals` [V, bs, 4] for side s
 // of dim d at 2d + s, or -1; a row's index along the edge is y for d = 0
 // and x for d = 1. So R is written whole, once.
 //
@@ -46,129 +46,11 @@
 // thread (56 against 48), a CUDA block an SM, and 7% of the time (0.0468
 // against 0.0437 ms, on one card in turns).
 
-#include <cuda_runtime.h>
+#include "faces_2d.cuh"
 
 namespace {
 
-struct Gas {
-  float R, cv, gR;
-};
-
-// The tables of one mesh block: h_d (0, 1), edge_valid[d][s] (3 + 2d + s),
-// bnd[d][s] (9 + 2d + s), the neighbor of side (d, s) and the fold's rows.
-struct Block2 {
-  float m[16];
-  int nb[4];
-  int row[4];
-};
-
-__device__ __forceinline__ void load_block(Block2& bi,
-                                           const float* __restrict__ meta,
-                                           const int* __restrict__ nbr,
-                                           const int* __restrict__ rows,
-                                           int b) {
-  for (int i = threadIdx.x; i < 24; i += blockDim.x) {
-    if (i < 16) {
-      bi.m[i] = meta[16LL * b + i];
-    } else if (i < 20) {
-      bi.nb[i - 16] = nbr[8LL * b + (i - 16)];
-    } else {
-      bi.row[i - 20] = rows[4LL * b + (i - 20)];
-    }
-  }
-}
-
-// Source cell of the halo slot of side q = 2d + s at lateral index j.
-template <int BS>
-__device__ __forceinline__ long long halo_cell(const Block2& bi, int b,
-                                               int q, int j) {
-  const int d = q >> 1, s = q & 1;
-  const bool bnd = bi.m[9 + q] > 0.f;
-  const int e = bnd ? (s ? BS - 1 : 0) : (s ? 0 : BS - 1);
-  const long long src = bnd ? b : bi.nb[q];
-  return (src * BS + (d == 0 ? j : e)) * BS + (d == 0 ? e : j);
-}
-
-template <int BS>
-__device__ __forceinline__ int halo_slot(int q, int j) {
-  constexpr int TW = BS + 2;
-  return q == 0   ? (j + 1) * TW
-         : q == 1 ? (j + 1) * TW + BS + 1
-         : q == 2 ? j + 1
-                  : (BS + 1) * TW + j + 1;
-}
-
-__device__ __forceinline__ float sgnf(float x) {
-  return (float)((x > 0.f) - (x < 0.f));
-}
-
-__device__ __forceinline__ void unpack(float4 v, float* a) {
-  a[0] = v.x;
-  a[1] = v.y;
-  a[2] = v.z;
-  a[3] = v.w;
-}
-
-// One side of the HLL flux along dim d: conservative state Q, directed
-// flux F, normal velocity and speed of sound (`_flux_one_side`).
-__device__ __forceinline__ void hll_side(const float* X, int d, Gas g,
-                                         float* Q, float* F, float& un,
-                                         float& aa) {
-  const float p = X[0];
-  const float T = fmaxf(X[1], 10.f);
-  const float u = X[2], v = X[3];
-  const float kin = (u * u + v * v) / 2;
-  const float rho = p / (g.R * T);
-  const float E = rho * (g.cv * T + kin);
-  Q[0] = rho;
-  Q[1] = E;
-  Q[2] = rho * u;
-  Q[3] = rho * v;
-  un = d == 0 ? u : v;
-  F[0] = rho * un;
-  F[1] = (E + p) * un;
-  F[2] = Q[2] * un + (d == 0 ? p : 0.f);
-  F[3] = Q[3] * un + (d == 0 ? 0.f : p);
-  aa = sqrtf(g.gR * T);
-}
-
-// -HLL flux of the MUSCL-reconstructed face between o (minus side) and n
-// (`face_b` with ho = hn = h; hh = h/2, ih = 1/h).
-__device__ __forceinline__ void face_b(int d, float hh, float ih,
-                                       bool high_order, const float* Po,
-                                       const float* Pn, const float* go,
-                                       const float* gn, float Do, float Dn,
-                                       Gas g, float* out) {
-  const float Db = fmaxf(fmaxf(Do, Dn), 1e-7f);
-  float PL[4], PR[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float grad_f = (Pn[c] - Po[c]) * ih;
-    const float slope_o = (2 * go[c] - grad_f) * hh;
-    const float slope_n = (2 * gn[c] - grad_f) * hh;
-    const float lim = fminf(fabsf(slope_n), fabsf(slope_o)) *
-                      (sgnf(slope_n) + sgnf(slope_o)) / 2;
-    float uf = (Po[c] * hh + Pn[c] * hh) * ih;
-    if (high_order) uf = uf + (go[c] * hh - gn[c] * hh) / 8;
-    PL[c] = (Po[c] + lim) * Db + (1.f - Db) * uf;
-    PR[c] = (Pn[c] - lim) * Db + (1.f - Db) * uf;
-  }
-  float QL[4], FL[4], QR[4], FR[4], uL, aL, uR, aR;
-  hll_side(PL, d, g, QL, FL, uL, aL);
-  hll_side(PR, d, g, QR, FR, uR, aR);
-  const float SL = fmaxf(uL + aL, 0.f);
-  const float SR = fminf(uR - aR, 0.f);
-  const float denom = SL - SR;
-  const bool safe = denom > 0.f;
-  const float inv = 1.f / denom;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float f =
-        safe ? (SL * FL[k] - SR * FR[k] + SR * SL * (QR[k] - QL[k])) * inv
-             : 0.f;
-    out[k] = -f;
-  }
-}
+using namespace ibx;
 
 template <int BS>
 __global__ void __launch_bounds__(BS * BS, BS >= 8 ? 768 / (BS * BS) : 16)
@@ -238,7 +120,9 @@ __global__ void __launch_bounds__(BS * BS, BS >= 8 ? 768 / (BS * BS) : 16)
       unpack(sG[io], go);
       unpack(sG[in], gn);
       const float h = bi.m[d];
-      face_b(d, h / 2, 1.f / h, ho, Po, Pn, go, gn, sNu[io], sNu[in], g, F);
+      const float hh = h / 2;
+      face_b(d, hh, hh, 1.f / h, ho, Po, Pn, go, gn, sNu[io], sNu[in], g,
+             F);
 #pragma unroll
       for (int c = 0; c < 4; ++c) F[c] = F[c] * ev;
     }

@@ -9,10 +9,14 @@ launch counters and plain PyTorch versions.
 | `euler_pass_b_fold` | csrc/euler_pass_b.cu    | `_kernel_b`, `have_cols`  |
 | `euler_pass_a_2d`   | csrc/euler_pass_a_2d.cu | no TPU kernel: `face_a`   |
 | `euler_pass_b_2d`   | csrc/euler_pass_b_2d.cu | no TPU kernel: `face_b`   |
+| `interface_a_2d`    | csrc/interface_2d.cu    | no TPU kernel: 2:1 glue   |
+| `interface_b_2d`    | csrc/interface_2d.cu    | no TPU kernel: 2:1 glue   |
 
 (the TPU kernels of ``ibx/ops/pallas_rhs.py``; the JAX package has no
 kernel at nd = 2, so the 2D passes replace the torch-op face evaluation
-of `block_ops.face_accumulate` with `block_ops.face_a` / `face_b`.)
+of `block_ops.face_accumulate` with `block_ops.face_a` / `face_b`, and
+the 2D interface kernels its 2:1 glue, `block_ops.interface_corrections`,
+which the JAX package leaves to XLA ops.)
 `stamp` (``csrc/stamp.cu``, no counter, no JAX counterpart) writes one
 ``(tag, %globaltimer)`` record for `utils.monitor.device_span`.
 
@@ -51,7 +55,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rk2_update.cu", "euler_pass_a.cu", "euler_pass_b.cu",
-           "euler_pass_a_2d.cu", "euler_pass_b_2d.cu", "stamp.cu")
+           "euler_pass_a_2d.cu", "euler_pass_b_2d.cu", "interface_2d.cu",
+           "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -62,7 +67,8 @@ STENCIL_BLOCK_SIZES = (4, 8, 16)
 
 launches: Dict[str, int] = {"rk2_update": 0, "euler_pass_a": 0,
                             "euler_pass_b": 0, "euler_pass_b_fold": 0,
-                            "euler_pass_a_2d": 0, "euler_pass_b_2d": 0}
+                            "euler_pass_a_2d": 0, "euler_pass_b_2d": 0,
+                            "interface_a_2d": 0, "interface_b_2d": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -143,11 +149,15 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                                         f, p]
     lib.ibx_euler_pass_b_2d.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
                                         f, f, f, p]
+    lib.ibx_interface_a_2d.argtypes = [p, p, p, p, i, i, i, f, p]
+    lib.ibx_interface_b_2d.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f, f,
+                                       p]
     lib.ibx_stamp.argtypes = [p, p, ll, ll, p]
     for fn in (lib.ibx_rk2_update, lib.ibx_euler_pass_a,
                lib.ibx_euler_pass_b, lib.ibx_euler_pass_a_smem,
                lib.ibx_euler_pass_b_smem, lib.ibx_euler_pass_a_2d,
-               lib.ibx_euler_pass_b_2d, lib.ibx_stamp):
+               lib.ibx_euler_pass_b_2d, lib.ibx_interface_a_2d,
+               lib.ibx_interface_b_2d, lib.ibx_stamp):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -743,3 +753,166 @@ def euler_pass_b_2d(fluid: Fluid, P3, du_x, du_y, nu, meta, nbr_table,
     _raise_on(err, "euler_pass_b_2d")
     launches["euler_pass_b_2d"] += 1
     return R
+
+
+# ---------------------------------------------------------------------------
+# 2D 2:1 interface faces (row table `BlockTables.ifc_rows`)
+# ---------------------------------------------------------------------------
+
+def _ifc_lanes(ifc, bs: int):
+    """The cells of the interface faces: per row of ``ifc`` [V, 6] and
+    lane i along its edge, the flat id of its own edge cell [V, bs] and of
+    the cell each sub-face q = 0, 1 faces (two [V, bs]; the fine side's one
+    face is its q = 0, and its q = 1 repeats it), with the row's d, s and
+    kind as [V, 1] columns."""
+    own, d, s, kind, n0, n1 = (c[:, None] for c in ifc.long().unbind(1))
+    i = torch.arange(bs, device=ifc.device)
+
+    def edge(b, side, j):
+        e = side * (bs - 1)
+        return (b * bs + torch.where(d == 0, j, e)) * bs \
+            + torch.where(d == 0, e, j)
+
+    fine = edge(n0, 1 - s, n1 * (bs // 2) + i // 2)
+    theirs = []
+    for q in (0, 1):
+        m = 2 * i + q
+        coarse = edge(torch.where(m < bs, n0, n1), 1 - s, m % bs)
+        theirs.append(torch.where(kind == 0, fine, coarse))
+    return edge(own, s, i), theirs, d, s, kind
+
+
+def _ifc_rows_ref(h, ifc, bs: int, operands, face, n_signed: int):
+    """The rows of the interface faces, as `block_ops
+    .interface_corrections` forms them: ``operands(ids, d)`` gives the
+    channel parts at flat cell ids, ``face(Wo, Wn, ho, hn, d)`` the face
+    values with the owner on the minus side; the first ``n_signed``
+    channels flip on s = 0. A fine-side row is (v sgn)/h, a coarse-side row
+    ((v_0 + v_1)(sgn/2))/h, with the facing cells' spacing 2h and h/2."""
+    mine, theirs, d, s, kind = _ifc_lanes(ifc, bs)
+    h_own = h[ifc[:, 0].long(), ifc[:, 1].long()][:, None, None]
+    coarse = (kind == 1)[..., None]
+    up = (s == 1)[..., None]
+    h_t = torch.where(coarse, h_own / 2.0, 2.0 * h_own)
+    ho, hn = torch.where(up, h_own, h_t), torch.where(up, h_t, h_own)
+    Wm = operands(mine, d)
+    F = []
+    for q in (0, 1):
+        Wt = operands(theirs[q], d)
+        # the owner of a face is its minus-side cell
+        F.append(face(tuple(torch.where(up, a, b) for a, b in zip(Wm, Wt)),
+                      tuple(torch.where(up, b, a) for a, b in zip(Wm, Wt)),
+                      ho, hn, d))
+    ch = torch.arange(F[0].shape[-1], device=ifc.device)
+    sgn = torch.where(~up & (ch < n_signed), -1.0, 1.0)
+    return torch.where(coarse, (F[0] + F[1]) * (sgn * 0.5) / h_own,
+                       F[0] * sgn / h_own)
+
+
+def interface_a_2d_ref(fluid: Fluid, P3, h, ifc, *, with_dt: bool):
+    """Plain version of `interface_a_2d`: the edge cells gathered by row
+    table, `block_ops.face_a` on each face (its S_d = |u_d| + a taken on
+    the gathered cells), signed and divided as `block_ops
+    .interface_corrections` does, so that on the CPU it gives the rows of
+    that glue bit for bit."""
+    from .block_ops import face_a     # block_ops imports this module
+    cells = P3.reshape(-1, 4)
+    fn = face_a(with_dt)
+
+    def operands(idx, d):
+        W = cells[idx]
+        if not with_dt:
+            return (W,)
+        ud = torch.where(d[..., None] == 0, W[..., 2:3], W[..., 3:4])
+        return (W, ud.abs() + speed_of_sound(fluid, W[..., 1])[..., None])
+
+    return _ifc_rows_ref(h, ifc, P3.shape[1], operands,
+                         lambda Wo, Wn, ho, hn, d: fn(Wo, Wn, ho, hn), 5)
+
+
+def interface_b_2d_ref(fluid: Fluid, P3, du_x, du_y, nu, h, ifc, *,
+                       high_order: bool):
+    """Plain version of `interface_b_2d`: `block_ops.face_b` on each
+    interface face from the gathered edge cells of P, du_d and nu (both
+    dims' face functions, each row taking its own), signed and divided as
+    `block_ops.interface_corrections` does: on the CPU the rows of that
+    glue bit for bit."""
+    from .block_ops import face_b     # block_ops imports this module
+    cells, gx, gy = (x.reshape(-1, 4) for x in (P3, du_x, du_y))
+    nu_c = nu.reshape(-1, 1)
+    fns = [face_b(fluid, high_order, d) for d in range(2)]
+
+    def operands(idx, d):
+        return (cells[idx], torch.where(d[..., None] == 0, gx[idx], gy[idx]),
+                nu_c[idx])
+
+    def face(Wo, Wn, ho, hn, d):
+        return torch.where(d[..., None] == 0, fns[0](Wo, Wn, ho, hn),
+                           fns[1](Wo, Wn, ho, hn))
+
+    return _ifc_rows_ref(h, ifc, P3.shape[1], operands, face, 4)
+
+
+def _check_ifc(h, ifc, B: int, device) -> None:
+    _check("h", h, (B, 2), device)
+    if ifc.device != device or ifc.dtype != torch.int32 or ifc.dim() != 2 \
+            or ifc.shape[1] != 6 or not ifc.is_contiguous():
+        raise ValueError("ifc must be a contiguous int32 [V, 6] tensor on "
+                         f"{device}")
+
+
+def interface_a_2d(fluid: Fluid, P3, h, ifc, *, with_dt: bool):
+    """Pass A's 2:1 interface rows at nd = 2: ``vals [V, bs, 7 | 6]``,
+    `block_ops.face_a`'s channels [du (4), G, U (, sf)] on the faces of
+    each row of ``ifc`` (`BlockTables.ifc_rows`, rows in the order
+    `BlockTables.fold_rows` numbers them) with ``h`` the blocks' spacing
+    [B, 2]: the compact corrections of `euler_pass_a_2d`."""
+    B, bs = _grid2_geometry(P3)
+    dev = P3.device
+    _check("P", P3, (B, bs, bs, 4), dev)
+    _check_ifc(h, ifc, B, dev)
+    if dev.type == "cpu":
+        return interface_a_2d_ref(fluid, P3, h, ifc, with_dt=with_dt)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_float4(P=P3)
+    V = ifc.shape[0]
+    vals = torch.empty((V, bs, 7 if with_dt else 6), dtype=P3.dtype,
+                       device=dev)
+    err = build().ibx_interface_a_2d(
+        _ptr(P3), _ptr(h), _ptr(ifc), _ptr(vals), V * bs,
+        bs.bit_length() - 1, int(with_dt), fluid.gR, _stream(dev))
+    _raise_on(err, "interface_a_2d")
+    launches["interface_a_2d"] += 1
+    return vals
+
+
+def interface_b_2d(fluid: Fluid, P3, du_x, du_y, nu, h, ifc, *,
+                   high_order: bool):
+    """Pass B's 2:1 interface rows at nd = 2: ``vals [V, bs, 4]``,
+    `block_ops.face_b` on the faces of each row of ``ifc`` from the state,
+    the pass-A gradients ``du_x``, ``du_y`` [B, bs, bs, 4] and the sensor
+    ``nu`` [B, bs, bs]: the compact corrections of `euler_pass_b_2d`."""
+    B, bs = _grid2_geometry(P3)
+    dev = P3.device
+    g4 = (B, bs, bs, 4)
+    _check("P", P3, g4, dev)
+    _check("du_x", du_x, g4, dev)
+    _check("du_y", du_y, g4, dev)
+    _check("nu", nu, (B, bs, bs), dev)
+    _check_ifc(h, ifc, B, dev)
+    if dev.type == "cpu":
+        return interface_b_2d_ref(fluid, P3, du_x, du_y, nu, h, ifc,
+                                  high_order=high_order)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_float4(P=P3, du_x=du_x, du_y=du_y)
+    V = ifc.shape[0]
+    vals = torch.empty((V, bs, 4), dtype=P3.dtype, device=dev)
+    err = build().ibx_interface_b_2d(
+        _ptr(P3), _ptr(du_x), _ptr(du_y), _ptr(nu), _ptr(h), _ptr(ifc),
+        _ptr(vals), V * bs, bs.bit_length() - 1, int(high_order), fluid.R,
+        fluid.cv, fluid.gR, _stream(dev))
+    _raise_on(err, "interface_b_2d")
+    launches["interface_b_2d"] += 1
+    return vals

@@ -3,7 +3,9 @@ RHS and TVD-RK2 step: the counterpart of `ibx/ops/pallas_rhs.py`
 (`cs_split`, `cs_merge`, `pallas_eligible`, `euler_rhs_cs` with its
 pre-add and fold paths, the cell-major shim `euler_rhs_grid_pallas`,
 `rk2_step_cs`). At nd = 2, `euler_rhs_grid_2d` on the march's cell-major
-state, which the JAX package leaves to XLA ops.
+state, which the JAX package leaves to XLA ops: four launches, the 2:1
+interface faces (`kernels.interface_a_2d` / `interface_b_2d`) before each
+pass.
 
 The state stays ``[B, C, bs, bs*bs]`` across the march. Per RHS
 evaluation: kernel pass A (`kernels.euler_pass_a`), the structured 2:1
@@ -27,7 +29,8 @@ from ..topology.blocks import BlockTables
 from ..utils.monitor import device_span
 from . import block_ops as bo
 from .kernels import (STENCIL_BLOCK_SIZES, euler_pass_a, euler_pass_a_2d,
-                      euler_pass_b, euler_pass_b_2d, rk2_update)
+                      euler_pass_b, euler_pass_b_2d, interface_a_2d,
+                      interface_b_2d, rk2_update)
 
 
 def cs_split(bt: BlockTables, X3):
@@ -331,30 +334,20 @@ def euler_rhs_grid_pallas(bt: BlockTables, fluid: Fluid, P3, *,
     return cs_merge(bt, Rc), dt3, (du3, cs_merge(bt, nu_cs))
 
 
-def _compact_rows(bt: BlockTables, cols_by_dim, width: int, like):
-    """The per-(d, s) interface corrections of `block_ops
-    .interface_corrections` (one list of two sides a dim) as the compact
-    operand of the 2D kernels: their rows concatenated in the order
-    `BlockTables.fold_rows` numbers them, [V, bs, width]."""
-    vals = [c[1] for cols in cols_by_dim for c in cols if c is not None]
-    if not vals:
-        return like.new_zeros((0, bt.block_size, width))
-    return torch.cat(vals)
-
-
 def euler_rhs_grid_2d(bt: BlockTables, fluid: Fluid, P3, *,
                       high_order: bool = True, with_dt: bool = False,
                       cfl: float = 0.8):
     """Kernel route of `block_ops.euler_rhs_grid` at nd = 2 on the
     cell-major state ``[B, bs, bs, 4]``: the same (R3 [, dt3, (du3_list,
-    nu3)]) structure, in two launches. The glue computes the 2:1 interface
-    corrections of pass A from the state's edge planes first
-    (`block_ops.interface_corrections`, as the torch-op body does), and
-    pass A (`kernels.euler_pass_a_2d`) folds them into its sums before it
-    forms the sensor and dt; then the corrections of pass B from the edge
-    planes of P, du_d and nu, which pass B (`kernels.euler_pass_b_2d`)
-    adds to each dim's divergence before it sums the dims. On the CPU the
-    plain versions give the torch-op body's values bit for bit. A state
+    nu3)]) structure, in four launches. `kernels.interface_a_2d` computes
+    the 2:1 interface corrections of pass A from the state's edge cells
+    first (the faces `block_ops.interface_corrections` evaluates in the
+    torch-op body), and pass A (`kernels.euler_pass_a_2d`) folds them into
+    its sums before it forms the sensor and dt; then
+    `kernels.interface_b_2d` the corrections of pass B from the edge cells
+    of P, du_d and nu, which pass B (`kernels.euler_pass_b_2d`) adds to
+    each dim's divergence before it sums the dims. On the CPU the plain
+    versions give the torch-op body's values bit for bit. A state
     with other strides (a column-major restart file) is copied once: the
     kernels read one float4 a cell."""
     dev, P3 = P3.device, P3.contiguous()
@@ -375,58 +368,23 @@ def euler_rhs_grid_2d(bt: BlockTables, fluid: Fluid, P3, *,
     return R3
 
 
-def _edge_lines(bt: BlockTables, parts, d: int,
-                extra_fn: Optional[Callable] = None):
-    """``fetch(s, blocks)`` for `block_ops.interface_corrections` at nd = 2:
-    the channel concatenation of the parts' side-s edge lines along d (with
-    ``extra_fn``'s channels appended), built once a side for every block,
-    then one row gather a fetch. `interface_corrections` fetches each side
-    twice (the owners' and the neighbors' lines), so this issues fewer
-    launches than `block_ops._grid_edge_fetch`, with the same values."""
-    lines = []
-    for s in (0, 1):
-        es = [bo._edge(bt, p, d, s) for p in parts]
-        e = es[0] if len(es) == 1 else torch.cat(es, dim=-1)
-        lines.append(e if extra_fn is None else extra_fn(e))
-
-    def fetch(s, blocks):
-        return lines[s].index_select(0, blocks)
-
-    return fetch
-
-
 def corrections_a_2d(bt: BlockTables, fluid: Fluid, P3, *, with_dt: bool):
     """Pass A's 2:1 interface corrections at nd = 2 (`block_ops.face_a` on
-    the interface faces, from the state's edge lines and, with dt, the
+    the interface faces, from the state's edge cells and, with dt, the
     wave speed S_d = |u_d| + a taken on them), compact for
-    `kernels.euler_pass_a_2d`: [V, bs, 7 | 6]."""
-    ncomp = P3.shape[-1]
-    signed = [1.0] * (ncomp + 1) + [0.0] * (2 if with_dt else 1)
-    face = bo.cat_fn(bo.face_a(with_dt), [ncomp, 1] if with_dt else [ncomp])
-
-    def with_S(d):
-        def extra(pp):
-            Sd = pp[..., 2 + d:3 + d].abs() \
-                + speed_of_sound(fluid, pp[..., 1])[..., None]
-            return torch.cat([pp, Sd], dim=-1)
-        return extra
-
-    return _compact_rows(bt, [bo.interface_corrections(
-        bt, d, face, signed,
-        _edge_lines(bt, (P3,), d, with_S(d) if with_dt else None))
-        for d in range(2)], len(signed), P3)
+    `kernels.euler_pass_a_2d`: [V, bs, 7 | 6], one launch of
+    `kernels.interface_a_2d` over `BlockTables.ifc_rows`."""
+    return interface_a_2d(fluid, P3, bt.h, bt.ifc_rows, with_dt=with_dt)
 
 
 def corrections_b_2d(bt: BlockTables, fluid: Fluid, P3, du3, nu3, *,
                      high_order: bool):
     """Pass B's 2:1 interface corrections at nd = 2 (`block_ops.face_b` on
-    the interface faces, from the edge lines of P, du_d and nu), compact
-    for `kernels.euler_pass_b_2d`: [V, bs, 4]."""
-    ncomp = P3.shape[-1]
-    return _compact_rows(bt, [bo.interface_corrections(
-        bt, d, bo.cat_fn(bo.face_b(fluid, high_order, d), [ncomp, ncomp, 1]),
-        [1.0] * ncomp, _edge_lines(bt, (P3, du3[d], nu3), d))
-        for d in range(2)], ncomp, P3)
+    the interface faces, from the edge cells of P, du_d and nu [B, bs, bs,
+    1]), compact for `kernels.euler_pass_b_2d`: [V, bs, 4], one launch of
+    `kernels.interface_b_2d`."""
+    return interface_b_2d(fluid, P3, du3[0], du3[1], nu3.squeeze(-1), bt.h,
+                          bt.ifc_rows, high_order=high_order)
 
 
 def rk2_step_cs(bt: BlockTables, fluid: Fluid, Pc, apply_bcs_cs: Callable,

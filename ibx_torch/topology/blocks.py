@@ -51,7 +51,13 @@ class BlockTables:
       s)-ordered concatenation of the interface rows cat(fs_block[d][s],
       cs_block[d][s]), or -1 (the row index of the compact 2:1
       corrections: the 3D pass-B fold, `kernels.euler_pass_b`, and both
-      2D passes, `kernels.euler_pass_a_2d` / `euler_pass_b_2d`).
+      2D passes, `kernels.euler_pass_a_2d` / `euler_pass_b_2d`);
+      ifc_rows int32[V, 6] at nd = 2 (no rows at nd = 3): interface row r
+      of that numbering as (own block, d, s, kind, n0, n1), kind 0 on the
+      fine side (n0 the coarse neighbor, n1 fs_off) and 1 on the coarse
+      side (n0, n1 the fine neighbors of cs_fine, low then high), the row
+      table of the 2D interface kernels (`kernels.interface_a_2d` /
+      `interface_b_2d`).
     """
 
     nbr: Tuple
@@ -71,6 +77,7 @@ class BlockTables:
     meta: torch.Tensor
     nbr_table: torch.Tensor
     fold_rows: torch.Tensor
+    ifc_rows: torch.Tensor
     n_blocks: int
     block_size: int
     nd: int
@@ -125,6 +132,7 @@ class BlockTables:
         meta[:, 0:nd] = h
         nbr_table = np.zeros((B, 8), np.int32)
         fold_rows = np.full((B, 2 * nd), -1, np.int32)
+        ifc_rows = []
         n_rows = 0
         for d in range(nd):
             for s in range(2):
@@ -136,6 +144,18 @@ class BlockTables:
                 fold_rows[ifc.astype(np.int64), 2 * d + s] = \
                     n_rows + np.arange(ifc.shape[0], dtype=np.int32)
                 n_rows += ifc.shape[0]
+                if nd == 2:
+                    fine = np.stack([f["fs_coarse"][d][s],
+                                     f["fs_off"][d][s]], axis=-1)
+                    nbrs = np.concatenate([np.reshape(fine, (-1, 2)),
+                                           np.reshape(f["cs_fine"][d][s],
+                                                      (-1, 2))])
+                    kind = np.arange(ifc.shape[0]) >= fine.shape[0]
+                    ifc_rows.append(np.column_stack([
+                        ifc, np.full(ifc.shape[0], d), np.full(
+                            ifc.shape[0], s), kind, nbrs]).astype(np.int32))
+        ifc_rows = np.concatenate(ifc_rows) if ifc_rows \
+            else np.zeros((0, 6), np.int32)
         return cls(
             nbr=per_side("nbr", idx),
             bnd=per_side("bnd", f32),
@@ -154,6 +174,7 @@ class BlockTables:
             meta=f32(meta),
             nbr_table=torch.as_tensor(nbr_table, device=device),
             fold_rows=torch.as_tensor(fold_rows, device=device),
+            ifc_rows=torch.as_tensor(ifc_rows, device=device),
             n_blocks=B, block_size=bs, nd=nd, n_cells=int(f["n_cells"]),
             n_sparse=n_sparse,
         )

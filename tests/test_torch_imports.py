@@ -196,6 +196,12 @@ def test_cpu_tensors_launch_nothing():
                                           with_dt=True, cfl=0.5)
     K.euler_pass_b_2d(fl, P3, du_x, du_y, nu, meta, nbr, rows2,
                       torch.ones((B * 4, bs, 4)), high_order=True)
+    h = torch.full((B, 2), 0.1)
+    ifc = torch.tensor([[0, 0, 1, 0, 1, 0], [1, 0, 0, 1, 0, 2]],
+                       dtype=torch.int32)
+    K.interface_a_2d(fl, P3, h, ifc, with_dt=True)
+    K.interface_b_2d(fl, P3, du_x, du_y, nu, h, ifc, high_order=True)
     assert K.launches == {"rk2_update": 0, "euler_pass_a": 0,
                           "euler_pass_b": 0, "euler_pass_b_fold": 0,
-                          "euler_pass_a_2d": 0, "euler_pass_b_2d": 0}
+                          "euler_pass_a_2d": 0, "euler_pass_b_2d": 0,
+                          "interface_a_2d": 0, "interface_b_2d": 0}
