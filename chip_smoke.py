@@ -239,14 +239,8 @@ ends the run with a non-zero exit:
      `march_robust` (after phase 30 there; its blend keeps the torch-op
      body, which the 2D kernel route leaves) and on the sphere's grid march
      with the fold and with frozen gradients (after phase 30 there);
- 33. the bench (after phase 16, before phase 5's sphere is freed): the
-     legs of `python -m ibx_torch.bench` at its defaults through its
-     functions, 300 steps each after a warm-up of 2 that captures: the
-     881,152-cell flagship at cfl 0.5 (built here), the same case on the
-     one-rank sharded runtime with ``overlap=True`` and phase 5's sphere
-     (`build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16)`, the bench's
-     own 3D case); the bench's JSON line, with its ``sharded_1dev`` and
-     ``sphere3d`` figures (no ``err:``), on a line of its own;
+ 33. (retired: the bench legs it ran; `benchmark/run.py` measures the
+     port's cells);
  34. the program's spans on the card (right after phase 2, in a process of
      its own: `python3 chip_smoke.py --phase 34`; on the 53,248-cell
      `build_rae2822(wall_h=8e-2, feature_h=4e-2)`): the globaltimer's
@@ -719,7 +713,6 @@ def kernel2d_parity(case, P3, label):
     high-order under the flow's sensor)."""
     from ibx_torch.ops import kernels as K
     from ibx_torch.ops.block_ops import euler_rhs_grid
-    from ibx_torch.ops.rhs_cs import corrections_a_2d, corrections_b_2d
 
     bt, fl = case.bt, case.fluid
     sides = interface_sides(bt)
@@ -729,7 +722,7 @@ def kernel2d_parity(case, P3, label):
     errs = {}
     tabs = (bt.meta, bt.nbr_table, bt.fold_rows)
     for with_dt in (True, False):
-        vals = corrections_a_2d(bt, fl, P3, with_dt=with_dt)
+        vals = K.interface_a_2d(fl, P3, bt.h, bt.ifc_rows, with_dt=with_dt)
         out = K.euler_pass_a_2d(fl, P3, *tabs, vals, with_dt=with_dt,
                                 cfl=case.cfl)
         ref = K.euler_pass_a_2d_ref(fl, P3, *tabs, vals, with_dt=with_dt,
@@ -751,7 +744,7 @@ def kernel2d_parity(case, P3, label):
     nu_r = torch.as_tensor((10.0 ** rng.uniform(-7, 0, tuple(nu.shape)))
                            .astype(np.float32), device=P3.device)
     for ho in (True, False):
-        vals = corrections_b_2d(bt, fl, P3, [du_x, du_y], nu[..., None],
+        vals = K.interface_b_2d(fl, P3, du_x, du_y, nu, bt.h, bt.ifc_rows,
                                 high_order=ho)
         for sensor, n_ in (("flow", nu), ("random", nu_r)):
             R = K.euler_pass_b_2d(fl, P3, du_x, du_y, n_, *tabs, vals,
@@ -782,17 +775,16 @@ def kernel2d_rows(case, P3, launches, errs):
     bound, registers, spills and shared memory. ``launches``: each
     kernel's launches a step on the flagship's march."""
     from ibx_torch.ops import kernels as K
-    from ibx_torch.ops.rhs_cs import corrections_a_2d, corrections_b_2d
 
     bt, fl = case.bt, case.fluid
     n_cells, n_blocks, bs = case.dom.ncells, bt.n_blocks, bt.block_size
     tabs = (bt.meta, bt.nbr_table, bt.fold_rows)
     P3 = P3.contiguous()    # the kernels' layout (the march may hold another)
-    va = {dt: corrections_a_2d(bt, fl, P3, with_dt=dt) for dt in (True,
-                                                                  False)}
+    va = {dt: K.interface_a_2d(fl, P3, bt.h, bt.ifc_rows, with_dt=dt)
+          for dt in (True, False)}
     du_x, du_y, nu, _ = K.euler_pass_a_2d(fl, P3, *tabs, va[True],
                                           with_dt=True, cfl=case.cfl)
-    vb = corrections_b_2d(bt, fl, P3, [du_x, du_y], nu[..., None],
+    vb = K.interface_b_2d(fl, P3, du_x, du_y, nu, bt.h, bt.ifc_rows,
                           high_order=True)
 
     def pass_a(dt, plain=False):
@@ -1713,7 +1705,7 @@ def solver_phases(root, dev, smi):
                                  point_implicit_step, solve)
     from ibx_torch.solve.euler import euler_rhs, local_timestep
     from ibx_torch.solve.point_implicit import _block_inv
-    from ibx_torch.solve.point_implicit_euler import newton_map
+    from ibx_torch.solve.point_implicit_euler import newton_map, step_graphs
 
     zero = dict.fromkeys(K.launches, 0)
     K.reset_launches()
@@ -2056,7 +2048,7 @@ def solver_phases(root, dev, smi):
         f"flagship point-implicit step nd=2 ({RAE_CELLS} cells, frozen "
         f"limiter, default generator)", pi_call(case, None), P,
         want=RHS2D, trace_eager=False)
-    assert len(bt._graphs.loops) == 1, bt._graphs.loops
+    assert len(step_graphs(bt).loops) == 1, step_graphs(bt).loops
     assert no_3d(K.launches), K.launches
     return dict(ms_cycle=ms["fas"][0], ms_smooth=ms["smooth"][0],
                 busy_cycle=busy_ms, activities_cycle=acts, sync_ms=d_ms,
@@ -3369,6 +3361,7 @@ def pi_call(case, gens, **kw):
     from the default generator (seeded 0 every step) where ``gens`` is
     None."""
     from ibx_torch.solve import point_implicit_step
+    from ibx_torch.solve.point_implicit_euler import step_graphs
 
     active = case.active3.reshape(-1)
 
@@ -3378,7 +3371,7 @@ def pi_call(case, gens, **kw):
             relax=PI_RELAX, active=active, freeze_limiter=True,
             generator=None if gens is None else gens[graph is None],
             graph=graph, **kw)
-        return P, ratio, case.bt._graphs.last.iterations
+        return P, ratio, step_graphs(case.bt).last.iterations
     return call
 
 
@@ -3443,44 +3436,6 @@ def padded_phase(tag, march, X, n=PADDED_STEPS):
                             busy_ms_concat=busy[False],
                             busy_ms_padded=busy[True]))
     assert equal, f"{tag}: the padded formulation changed the march"
-
-
-def bench_phase(case3d, smi):
-    """Phase 33: the bench's legs through `ibx_torch.bench` at its
-    defaults (300 steps each after a warm-up of 2 that captures): the
-    881,152-cell flagship at cfl 0.5 (built here), the same case on the
-    one-rank sharded runtime with ``overlap=True`` (NCCL) and phase 5's
-    sphere, the bench's own 3D case; prints the bench's JSON line."""
-    from ibx_torch import bench
-    from ibx_torch.ops import kernels as K
-
-    t0 = time.perf_counter()
-    K.reset_launches()
-    line = bench.run("cuda", sphere=case3d, env={})
-    launches = dict(K.launches)
-    log("[bench] " + json.dumps(line))
-    # 2 of each kernel a step over each leg's warm-up, timed and traced
-    # steps: the 3D ones on the sphere's channel-split march, the 2D passes
-    # on the flagship's block march and on its one-rank sharded march
-    # (whose local tables the gate admits, phase 25); the 2D legs build
-    # their marches here, so each capture's eager warm-up step counts too
-    # (the sphere's step was captured in phase 5)
-    steps = bench.WARMUP_STEPS + 300 + bench.BUSY_STEPS
-    want = counts(steps, rk2_update=2, euler_pass_a=2, euler_pass_b=2)
-    for k in STEP2D:
-        want[k] = 2 * STEP2D[k] * (steps + 1)
-    log(f"[bench] kernel launches over the bench's legs {launches} "
-        f"(want {want})")
-    assert launches == want, (launches, want)
-    unit = line["unit"]
-    assert line["metric"] == "rae2822_euler_cell_updates_per_sec_per_chip"
-    assert np.isfinite(line["value"]) and line["value"] > 0, line
-    assert f"cells={RAE_CELLS}," in unit and "cells=5308416," in unit, unit
-    assert "sharded_1dev=" in unit and "sphere3d=" in unit, unit
-    assert "err:" not in unit, unit
-    log(f"[bench] phase 33 took {time.perf_counter() - t0:.1f} s; card: "
-        f"{smi}")
-    return line
 
 
 def pi3d_phase(dev, smi):
@@ -3610,9 +3565,6 @@ def main() -> int:
     t0 = time.perf_counter()
     gather3d_full(smi, blk3d, case3d)
     log(f"[gather3d-full] phase 16 took {time.perf_counter() - t0:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    bench_phase(case3d, smi)
     # the sphere's tensors are no longer needed: free them before the 2D
     # phases, so that their peak memory is their own
     del case3d

@@ -1,31 +1,30 @@
 """Dense block-structured operators on the cell-major block grid
 ``[B, bs, ..., bs, C]`` (counterpart of `ibx/ops/block_ops.py`, nd = 2
-and 3): layout reshapes, the structured 2:1 interface corrections, the
-generic sparse leftover, `face_accumulate` (in both of the JAX
-package's formulations, concat by default and padded under
-``IBX_PADDED_FACES``) and `cell_gradient_grid` on it, the block Euler RHS
+and 3): layout reshapes, the generic sparse leftover, `face_accumulate`
+(in both of the JAX package's formulations, concat by default and padded
+under ``IBX_PADDED_FACES``) with the structured 2:1 interface
+corrections, and `cell_gradient_grid` on it, the block Euler RHS
 `euler_rhs_grid` with the ``fix3`` robustness blend, the ``cut3``
 cut-cell wall, the ``viscous`` fluxes with an ``mu_t3`` field and, at
 nd = 3 and 2, its kernel routes (`ops/rhs_cs.py`), implicit residual
 smoothing, and the grid marches `rk2_step_grid` / `euler_step_grid` with
-their flat wrappers. The JAX package has no kernel at nd = 2; the port's
-2D route gives its torch-op body's values bit for bit on the CPU. The
-minmod limiter is `ibx_torch.ops.operators.minmod`."""
+their flat wrappers. The face functions and the 2:1 interface faces are
+`ops/scheme.py`'s. The JAX package has no kernel at nd = 2; the port's
+2D route gives its torch-op body's values bit for bit on the CPU."""
 
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Sequence
 
-import numpy as np
 import torch
 
 from ..physics.fluid import (Fluid, primitive2state, speed_of_sound,
                              state2primitive_guarded)
-from ..physics.flux import inviscid_fluxes_hll, viscous_fluxes
 from ..topology.blocks import BlockTables
 from ..utils.monitor import device_span
-from .operators import abs_select, minmod
+from . import rhs_cs, scheme
+from .operators import abs_select
 
 # the face-array formulation of `face_accumulate`, read once at import as
 # the JAX package reads it (`ibx/ops/block_ops.py:38`): concat by default,
@@ -42,123 +41,6 @@ def to_blocks(bt: BlockTables, u_flat):
 def to_flat(bt: BlockTables, u3):
     """[B, bs, ..., bs, ...] -> [N, ...]."""
     return u3.reshape((bt.n_cells,) + tuple(u3.shape[1 + bt.nd:]))
-
-
-def _expand_half(col, off, bs: int):
-    """col [V, bs, C], off [V] in {0,1} -> entry j = col[off*bs/2 + j//2]."""
-    low = col[:, : bs // 2].repeat_interleave(2, dim=1)
-    high = col[:, bs // 2:].repeat_interleave(2, dim=1)
-    return torch.where((off == 1)[:, None, None], high, low)
-
-
-def _expand_coarse(col, off, bs: int, nd: int):
-    """Coarse edge plane -> the values seen by the fine-side plane cells.
-
-    2D: col [V, bs, C], off in {0, 1} (which half). 3D: col [V, bs, bs, C]
-    (hi-major), quadrant ``off = off_hi * 2 + off_lo``, upsampled 2x per
-    perpendicular dim."""
-    if nd == 2:
-        return _expand_half(col, off, bs)
-    h = bs // 2
-    outs = []
-    for qh in (0, 1):
-        for ql in (0, 1):
-            quad = col[:, qh * h:qh * h + h, ql * h:ql * h + h]
-            outs.append(quad.repeat_interleave(2, dim=1)
-                        .repeat_interleave(2, dim=2))
-    sel = off[:, None, None, None]
-    out = outs[0]
-    for k in (1, 2, 3):
-        out = torch.where(sel == k, outs[k], out)
-    return out
-
-
-def _coarse_side_neighbors(planes, nd: int):
-    """Fine-block edge planes -> the 2^(nd-1) per-coarse-cell sub-face
-    value sets. 2D: planes = [f_low, f_high], each [V, bs, C]. 3D: four
-    planes in hi-major quadrant order, each [V, bs, bs, C]."""
-    if nd == 2:
-        fine = torch.cat(list(planes), dim=1)            # [V, 2bs, C]
-        return [fine[:, 0::2], fine[:, 1::2]]
-    top = torch.cat([planes[0], planes[1]], dim=2)
-    bot = torch.cat([planes[2], planes[3]], dim=2)
-    p2 = torch.cat([top, bot], dim=1)                  # [V, 2bs, 2bs, C]
-    return [p2[:, dy::2, dx::2] for dy in (0, 1) for dx in (0, 1)]
-
-
-def interface_corrections(
-    bt: BlockTables, d: int, face_fn: Callable, signed_mask: Sequence[float],
-    fetch: Callable,
-) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Structured 2:1 interface contributions along dim ``d``
-    (`ibx.ops.block_ops.interface_corrections` with ``edge_fetch``).
-
-    ``fetch(s, blocks) -> [V, lat.., K]`` gives the channel-last side-s
-    edge planes of the given blocks; ``face_fn(W_owner, W_neighbor,
-    h_owner, h_neighbor) -> [..., n_out]`` evaluates faces with the owner
-    on the minus side. Channels flagged in ``signed_mask`` accumulate
-    Green-Gauss style (+ on a cell's plus side, - on its minus side).
-
-    Returns, per side s, None or ``(blocks [V], vals [V, lat.., n_out])``:
-    the interface blocks (fine-side rows first, then coarse-side rows; the
-    two sets are disjoint) and their edge-plane corrections, already divided
-    by the accumulating cell's spacing. The JAX package places these rows
-    into a zero grid; the port adds them in place (`rhs_cs._cols_add_cs`),
-    which adds the same values to the same slots."""
-    bs, nd = bt.block_size, bt.nd
-    n_fine = 2 ** (nd - 1)
-
-    def hshape(blocks):
-        return bt.h[blocks, d].reshape((blocks.shape[0],) + (1,) * nd)
-
-    # Every interface face of both sides goes through ONE face_fn call: the
-    # evaluation is elementwise, so each face gets the value a per-piece
-    # call would give, and the glue launches a tenth of the ops.
-    Wo, Wn, ho, hn, sides = [], [], [], [], []
-    for s in (0, 1):
-        fsb, csb = bt.fs_block[d][s], bt.cs_block[d][s]
-        Vf, Vc = fsb.shape[0], csb.shape[0]
-        if Vf + Vc == 0:
-            continue
-        blocks = torch.cat([fsb, csb])
-        own = fetch(s, blocks)
-        other = fetch(1 - s, torch.cat([bt.fs_coarse[d][s],
-                                        bt.cs_fine[d][s].t().reshape(-1)]))
-        h_own = hshape(blocks)
-        # fine side: the facing quadrant of the coarse neighbor's plane;
-        # coarse side: the 2^(nd-1) fine sub-face sets of each coarse cell
-        theirs = [_expand_coarse(other[:Vf], bt.fs_off[d][s], bs, nd)]
-        theirs += _coarse_side_neighbors(
-            other[Vf:].unflatten(0, (n_fine, Vc)).unbind(0), nd)
-        mine = torch.cat([own[:Vf]] + [own[Vf:]] * n_fine)
-        theirs = torch.cat(theirs)
-        hm = torch.cat([h_own[:Vf]] + [h_own[Vf:]] * n_fine)
-        ht = torch.cat([2.0 * h_own[:Vf]] + [h_own[Vf:] / 2.0] * n_fine)
-        # the owner of a face is its minus-side cell
-        pair = (mine, theirs, hm, ht) if s == 1 else (theirs, mine, ht, hm)
-        for acc, x in zip((Wo, Wn, ho, hn), pair):
-            acc.append(x)
-        sides.append((s, blocks, Vf, Vc, h_own))
-
-    cols = [None, None]
-    if not sides:
-        return cols
-    vals = face_fn(torch.cat(Wo), torch.cat(Wn), torch.cat(ho),
-                   torch.cat(hn))
-    off = 0
-    for s, blocks, Vf, Vc, h_own in sides:
-        # the owner's side flips the signed channels
-        sgn = 1.0 if s == 1 else bt.signs(signed_mask)
-        fine = vals[off:off + Vf]
-        sub = vals[off + Vf:off + Vf + n_fine * Vc].unflatten(
-            0, (n_fine, Vc))
-        off += Vf + n_fine * Vc
-        tot = sub[0]
-        for q in range(1, n_fine):
-            tot = tot + sub[q]
-        cols[s] = (blocks, torch.cat([fine * sgn / h_own[:Vf],
-                                      tot * (sgn / n_fine) / h_own[Vf:]]))
-    return cols
 
 
 # ---------------------------------------------------------------------------
@@ -182,28 +64,15 @@ def _edge(bt: BlockTables, u3, d: int, s: int):
 
 
 def _grid_edge_fetch(bt: BlockTables, parts, d: int):
-    """``fetch(s, blocks)`` for `interface_corrections` over cell-major
-    parts: the channel concatenation of the parts' side-s edge planes of
-    the given blocks."""
+    """``fetch(s, blocks)`` for `scheme.interface_corrections` over
+    cell-major parts: the channel concatenation of the parts' side-s edge
+    planes of the given blocks."""
     def fetch(s, blocks):
         es = [_edge(bt, p, d, s).index_select(0, blocks) for p in parts]
         return es[0] if len(es) == 1 else torch.cat(es, dim=-1)
 
     return fetch
 
-
-def cat_fn(face_fn: Callable, widths: Sequence[int]) -> Callable:
-    """A face function over channel-concatenated operands from one over
-    tuples of channel parts of the given widths."""
-    offs = np.cumsum([0] + list(widths))
-
-    def split(W):
-        return tuple(W[..., offs[i]:offs[i + 1]] for i in range(len(widths)))
-
-    def fn(Wo, Wn, ho, hn):
-        return face_fn(split(Wo), split(Wn), ho, hn)
-
-    return fn
 
 
 def _sparse_accum(bt: BlockTables, d: int, parts, face_fn: Callable,
@@ -216,7 +85,7 @@ def _sparse_accum(bt: BlockTables, d: int, parts, face_fn: Callable,
     cell with several leftover faces sums them in an order that varies
     from run to run."""
     flats = [p.reshape(bt.n_cells, -1) for p in parts]
-    fn = cat_fn(face_fn, [f.shape[-1] for f in flats])
+    fn = scheme.cat_fn(face_fn, [f.shape[-1] for f in flats])
 
     def gather(idx):
         rows = [f.index_select(0, idx) for f in flats]
@@ -277,8 +146,9 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
       (bs+1)-windows.
 
     Edge faces of 2:1 sides are masked to zero; the 2:1 rows of
-    `interface_corrections` are added in place at the edge slots, and the
-    generic sparse leftover, where the mesh has one, is added last."""
+    `scheme.interface_corrections` are added in place at the edge slots,
+    and the generic sparse leftover, where the mesh has one, is added
+    last."""
     tup = isinstance(W3, (tuple, list))
     parts = tuple(W3) if tup else (W3,)
     fn = face_fn if tup else (
@@ -316,9 +186,9 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
     sgn = bt.signs(signed_mask)
     out = (Fall.narrow(ax, 1, bs) + sgn * Fall.narrow(ax, 0, bs)) / h
 
-    face_cat = cat_fn(fn, [p.shape[-1] for p in parts])
+    face_cat = scheme.cat_fn(fn, [p.shape[-1] for p in parts])
     with device_span("march.two_to_one", out.device):
-        cols = interface_corrections(bt, d, face_cat, signed_mask,
+        cols = scheme.interface_corrections(bt, d, face_cat, signed_mask,
                                      _grid_edge_fetch(bt, parts, d))
         for s in (0, 1):
             if cols[s] is not None:
@@ -345,82 +215,6 @@ def cell_gradient_grid(bt: BlockTables, u3, d: int):
 # Euler RHS on the cell-major grid
 # ---------------------------------------------------------------------------
 
-def face_a(with_dt: bool) -> Callable:
-    """Pass A's face function over parts (P [, S_d]): the face value of P,
-    the signed and absolute pressure differences (sensor) and, with
-    ``with_dt``, the face wave speed."""
-    def fn(Wo, Wn, ho, hn):
-        Po, Pn = Wo[0], Wn[0]
-        Pf = (Po * hn + Pn * ho) / (ho + hn)
-        fd = Pn[..., 0:1] - Po[..., 0:1]
-        out = [Pf, fd, abs_select(fd)]
-        if with_dt:
-            So, Sn = Wo[1], Wn[1]
-            out.append((So * hn + Sn * ho) / (ho + hn))
-        return torch.cat(out, dim=-1)
-
-    return fn
-
-
-def face_b(fluid: Fluid, high_order: bool, d: int,
-           has_fix: bool = False, viscous: bool = False,
-           has_mut: bool = False) -> Callable:
-    """Pass B's face function over parts (P, du_d, nu [, fix] [, du_i for
-    i != d [, mu_t]]): -HLL flux of the MUSCL-reconstructed face with the
-    JST blend. With ``has_fix`` a face takes the larger ``fix`` of its two
-    cells: it scales the limited slopes toward first order, forces the
-    blend to limited upwinding and widens the HLL wave speeds to the
-    Einfeldt bounds. With ``viscous`` the Newtonian viscous and
-    heat-conduction flux is subtracted: P, the lateral gradients and
-    ``mu_t`` are interpolated to the face, the normal gradient is the
-    two-point difference (the orthogonality-corrected form,
-    ``src/ImmersedBoundary.jl:1051-1069``)."""
-    def fn(Wo, Wn, ho, hn):
-        Po, Pn = Wo[0], Wn[0]
-        duo, dun = Wo[1], Wn[1]
-        Do, Dn = Wo[2], Wn[2]
-        k = 3
-        fo = None
-        if has_fix:
-            fo = torch.maximum(Wo[k], Wn[k])
-            k += 1
-        down, dneigh = ho / 2, hn / 2
-        grad_f = (Pn - Po) / (down + dneigh)
-        slope_o = (2 * duo - grad_f) * down
-        slope_n = (2 * dun - grad_f) * dneigh
-        lim = minmod(slope_n, slope_o)
-        if has_fix:
-            lim = lim * (1.0 - fo)
-        PL = Po + lim
-        PR = Pn - lim
-        D = torch.maximum(Do, Dn).clamp(min=1e-7)
-        if has_fix:
-            D = torch.maximum(D, fo)
-        uf = (Po * dneigh + Pn * down) / (down + dneigh)
-        if high_order:
-            uf = uf + (duo * down - dun * dneigh) / 8
-        PL = PL * D + (1.0 - D) * uf
-        PR = PR * D + (1.0 - D) * uf
-        F = inviscid_fluxes_hll(fluid, PL, PR, d, fix=fo)
-        if viscous:
-            def at_f(a_o, a_n):
-                return (a_o * dneigh + a_n * down) / (down + dneigh)
-
-            Pf = at_f(Po, Pn)
-            gf = []
-            kk = k
-            for i in range(Po.shape[-1] - 2):
-                if i == d:
-                    gf.append(grad_f)
-                else:
-                    gf.append(at_f(Wo[kk], Wn[kk]))
-                    kk += 1
-            mu_t_f = at_f(Wo[kk], Wn[kk])[..., 0] if has_mut else 0.0
-            F = F - viscous_fluxes(fluid, Pf, gf, d, mu_t=mu_t_f)
-        return -F      # accumulate R += -divergence(F) directly
-
-    return fn
-
 
 def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
                    high_order: bool = True, with_dt: bool = False,
@@ -433,7 +227,7 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     to skip pass A (frozen-limiter RK stages).
 
     ``fix3`` (optional [B, bs.., 1] in [0, 1]): the local robustness blend
-    of `face_b` (first order + Einfeldt wave speeds where > 0, the
+    of `scheme.face_b` (first order + Einfeldt wave speeds where > 0, the
     reference numerics where 0 or None).
 
     ``kernels`` (the counterpart of ``IBX_PALLAS_RHS``): every
@@ -460,15 +254,17 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     vector, divides by the fluid fraction and scales dt by it (the
     cut-cell CFL); it takes the torch-op body.
     """
-    from .rhs_cs import (euler_rhs_grid_2d, euler_rhs_grid_pallas,
-                         pallas_eligible)
-    if kernels and pallas_eligible(bt, viscous=viscous, frozen=frozen,
-                                   fix3=fix3, mu_t3=mu_t3, cut3=cut3):
+    if kernels and rhs_cs.pallas_eligible(bt, viscous=viscous,
+                                          frozen=frozen, fix3=fix3,
+                                          mu_t3=mu_t3, cut3=cut3):
         if bt.nd == 2:
-            return euler_rhs_grid_2d(bt, fluid, P3, high_order=high_order,
-                                     with_dt=with_dt, cfl=cfl)
-        return euler_rhs_grid_pallas(bt, fluid, P3, high_order=high_order,
-                                     with_dt=with_dt, cfl=cfl, fold=fold)
+            return rhs_cs.euler_rhs_grid_2d(bt, fluid, P3,
+                                            high_order=high_order,
+                                            with_dt=with_dt, cfl=cfl)
+        return rhs_cs.euler_rhs_grid_pallas(bt, fluid, P3,
+                                            high_order=high_order,
+                                            with_dt=with_dt, cfl=cfl,
+                                            fold=fold)
     with device_span("march.rhs", P3.device):
         return _euler_rhs_ops(bt, fluid, P3, high_order, with_dt, cfl,
                               frozen, fix3, viscous, mu_t3, cut3)
@@ -495,7 +291,8 @@ def _euler_rhs_ops(bt: BlockTables, fluid: Fluid, P3, high_order: bool,
         du_grids, nu3 = list(frozen[0]), frozen[1]
     for d in range(nd if frozen is None else 0):
         partsA = (P3, S3[..., d:d + 1]) if with_dt else (P3,)
-        outA = face_accumulate(bt, d, partsA, face_a(with_dt), nA, signedA)
+        outA = face_accumulate(bt, d, partsA, scheme.face_a(with_dt), nA,
+                               signedA)
         du_grids.append(outA[..., :ncomp])
         G3 = outA[..., ncomp]
         U3 = outA[..., ncomp + 1]
@@ -514,7 +311,8 @@ def _euler_rhs_ops(bt: BlockTables, fluid: Fluid, P3, high_order: bool,
             Vparts += tuple(du_grids[i] for i in range(nd) if i != d)
             if has_mut:
                 Vparts += (mu_t3,)
-        fB = face_b(fluid, high_order, d, has_fix, viscous, has_mut)
+        fB = scheme.face_b(fluid, high_order, d, has_fix, viscous,
+                           has_mut)
         R3 = R3 + face_accumulate(bt, d, Vparts, fB, ncomp, signedB)
         if cut3 is not None and cut3["owner"][d].shape[0]:
             # remove the solid-covered fraction (1 - aperture) of the cut

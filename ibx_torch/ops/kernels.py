@@ -14,9 +14,9 @@ launch counters and plain PyTorch versions.
 
 (the TPU kernels of ``ibx/ops/pallas_rhs.py``; the JAX package has no
 kernel at nd = 2, so the 2D passes replace the torch-op face evaluation
-of `block_ops.face_accumulate` with `block_ops.face_a` / `face_b`, and
-the 2D interface kernels its 2:1 glue, `block_ops.interface_corrections`,
-which the JAX package leaves to XLA ops.)
+of `block_ops.face_accumulate` with `scheme.face_a` / `face_b`, and the
+2D interface kernels its 2:1 glue, `scheme.interface_corrections`, which
+the JAX package leaves to XLA ops.)
 `stamp` (``csrc/stamp.cu``, no counter, no JAX counterpart) writes one
 ``(tag, %globaltimer)`` record for `utils.monitor.device_span`.
 
@@ -50,6 +50,8 @@ from typing import Dict, Optional
 import torch
 
 from ..physics.fluid import Fluid, speed_of_sound
+from .operators import abs_select
+from .scheme import face_a, face_b
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -304,7 +306,8 @@ def rk2_update(fluid: Fluid, Pc, R0, R1, dtb, active, cfl: float):
 
 
 # ---------------------------------------------------------------------------
-# shared plain-version helpers (5D view [B, C, z, y, x]; dim d on axis 4-d)
+# shared plain-version helpers, on both layouts: the 3D view [B, C, z, y, x]
+# (dim d on axis ax = 4 - d) and the 2D grid [B, bs, bs, C] (ax = 2 - d)
 # ---------------------------------------------------------------------------
 
 def _bview(v):
@@ -312,49 +315,57 @@ def _bview(v):
     return v.view((-1, 1, 1, 1, 1))
 
 
-def _halo(X5, meta, nbr_table, d: int, s: int):
-    """The side-s halo plane along dim d of every block: the neighbor
-    block's opposite edge plane, or the own edge plane on a one-sided
-    boundary side."""
-    ax = 4 - d
-    bs = X5.shape[ax]
-    first = X5.narrow(ax, 0, 1)
-    last = X5.narrow(ax, bs - 1, 1)
-    bnd = _bview(meta[:, 9 + 2 * d + s])
+def _halo(X, meta, nbr_table, d: int, s: int, ax: int):
+    """The side-s halo plane along dim d (on axis ``ax``) of every block:
+    the neighbor block's opposite edge plane, or the own edge plane on a
+    one-sided boundary side (`block_ops._halos`)."""
+    bs = X.shape[ax]
+    first = X.narrow(ax, 0, 1)
+    last = X.narrow(ax, bs - 1, 1)
+    bnd = meta[:, 9 + 2 * d + s].view((-1,) + (1,) * (X.dim() - 1))
     nb = nbr_table[:, 2 * d + s].long()
     if s == 0:
         return torch.where(bnd > 0, first, last[nb])
     return torch.where(bnd > 0, last, first[nb])
 
 
-def _faces(X5, meta, nbr_table, d: int):
-    """The minus and plus cells of the bs+1 faces along dim d of every
-    block (face k between cells k-1 and k, the halo planes at the ends):
-    two views of X5 extended by its halo planes."""
-    ax = 4 - d
-    bs = X5.shape[ax]
-    ext = torch.cat([_halo(X5, meta, nbr_table, d, 0), X5,
-                     _halo(X5, meta, nbr_table, d, 1)], dim=ax)
-    return ext.narrow(ax, 0, bs + 1), ext.narrow(ax, 1, bs + 1)
-
-
-def _face_mask(meta, d: int, bs: int):
-    """The bs+1 faces' masks along dim d: edge_valid[d][0] on face 0,
-    edge_valid[d][1] on face bs, 1 between."""
+def _faces(X, meta, nbr_table, d: int, ax: int):
+    """The minus and plus cells of the bs+1 faces along dim d (on axis
+    ``ax``) of every block (face k between cells k-1 and k, the halo
+    planes at the ends): two views of X extended by its halo planes; and
+    the faces' masks, shaped to broadcast against them (edge_valid[d][0]
+    on face 0, edge_valid[d][1] on face bs, 1 between)."""
+    bs = X.shape[ax]
+    ext = torch.cat([_halo(X, meta, nbr_table, d, 0, ax), X,
+                     _halo(X, meta, nbr_table, d, 1, ax)], dim=ax)
     B = meta.shape[0]
     m = torch.ones((B, bs + 1), dtype=meta.dtype, device=meta.device)
     m[:, 0] = meta[:, 3 + 2 * d]
     m[:, bs] = meta[:, 4 + 2 * d]
-    shape = [B, 1, 1, 1, 1]
-    shape[4 - d] = bs + 1
-    return m.view(shape)
+    shape = [B] + [1] * (X.dim() - 1)
+    shape[ax] = bs + 1
+    return ext.narrow(ax, 0, bs + 1), ext.narrow(ax, 1, bs + 1), \
+        m.view(shape)
 
 
-def _minus_plus(F, d: int):
+def _minus_plus(F, ax: int):
     """Each cell's minus and plus face values from the bs+1 faces."""
-    ax = 4 - d
     bs = F.shape[ax] - 1
     return F.narrow(ax, 0, bs), F.narrow(ax, 1, bs)
+
+
+def _fold_add(X, rows, vals, d: int, ax: int) -> None:
+    """Add, in place, row ``rows[b, 2d + s]`` of the compact 2:1
+    corrections ``vals`` (one edge plane a row) to block b's side-s edge
+    plane along dim d (on axis ``ax``) of ``X``, for both sides (a block
+    without a row adds the zero row last: no data-dependent shape, so that
+    a CUDA graph can capture it)."""
+    bs = X.shape[ax]
+    vz = torch.cat([vals, vals.new_zeros((1,) + tuple(vals.shape[1:]))])
+    for s in (0, 1):
+        r = rows[:, 2 * d + s].long()
+        idx = torch.where(r >= 0, r, vz.shape[0] - 1)
+        X.select(ax, bs - 1 if s else 0).add_(vz[idx])
 
 
 # ---------------------------------------------------------------------------
@@ -373,17 +384,17 @@ def euler_pass_a_ref(fluid: Fluid, Pc, meta, nbr_table, *, with_dt: bool):
     du, G, U, sf = [], [], [], []
     for d in range(3):
         h = _bview(meta[:, d])
-        m = _face_mask(meta, d, bs)
-        Po, Pn = _faces(P, meta, nbr_table, d)
-        Pf_m, Pf_p = _minus_plus((Po * h + Pn * h) / (h + h) * m, d)
-        fd_m, fd_p = _minus_plus((Pn[:, 0:1] - Po[:, 0:1]) * m, d)
+        Po, Pn, m = _faces(P, meta, nbr_table, d, 4 - d)
+        Pf_m, Pf_p = _minus_plus((Po * h + Pn * h) / (h + h) * m, 4 - d)
+        fd_m, fd_p = _minus_plus((Pn[:, 0:1] - Po[:, 0:1]) * m, 4 - d)
         du.append((Pf_p - Pf_m) / h)
         G.append((fd_p - fd_m) / h)
         U.append((fd_p.abs() + fd_m.abs()) / h)
         if with_dt:
             So = Po[:, 2 + d:3 + d].abs() + sound(Po[:, 1:2])
             Sn = Pn[:, 2 + d:3 + d].abs() + sound(Pn[:, 1:2])
-            sf_m, sf_p = _minus_plus((So * h + Sn * h) / (h + h) * m, d)
+            sf_m, sf_p = _minus_plus((So * h + Sn * h) / (h + h) * m,
+                                     4 - d)
             sf.append((sf_p + sf_m) / h)
     aux = torch.cat(G + U + sf, dim=1)
     return (torch.cat(du, dim=1).reshape(B, 15, bs, bs * bs),
@@ -474,16 +485,9 @@ def fold_du_ref(du, cols6):
     B, _, bs, _ = du.shape
     out = du.clone()
     o5 = out.view(B, 15, bs, bs, bs)
-    # a block without a row adds the zero row last: no data-dependent
-    # shape, so that a CUDA graph can capture it
-    v4 = torch.cat([vals.view(vals.shape[0], 5, bs, bs),
-                    vals.new_zeros((1, 5, bs, bs))])
+    v4 = vals.view(vals.shape[0], 5, bs, bs)
     for d in range(3):
-        for s in range(2):
-            r = rows[:, 2 * d + s].long()
-            idx = torch.where(r >= 0, r, v4.shape[0] - 1)
-            o5[:, 5 * d:5 * d + 5].select(4 - d, bs - 1 if s else 0) \
-                .add_(v4[idx])
+        _fold_add(o5[:, 5 * d:5 * d + 5], rows, v4, d, 4 - d)
     return out
 
 
@@ -500,9 +504,9 @@ def euler_pass_b_ref(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
         W = torch.cat([Pc, du[:, 5 * d:5 * d + 5], nu], dim=1).view(
             B, 11, bs, bs, bs)
         h = _bview(meta[:, d])
-        Wo, Wn = _faces(W, meta, nbr_table, d)
-        F = _face_b(fluid, high_order, d, h, Wo, Wn) * _face_mask(meta, d, bs)
-        Fm, Fp = _minus_plus(F, d)
+        Wo, Wn, m = _faces(W, meta, nbr_table, d, 4 - d)
+        Fm, Fp = _minus_plus(_face_b(fluid, high_order, d, h, Wo, Wn) * m,
+                             4 - d)
         Rd = (Fp - Fm) / h
         acc = Rd if acc is None else acc + Rd
     return acc.reshape(B, 5, bs, bs * bs)
@@ -554,70 +558,13 @@ def euler_pass_b(fluid: Fluid, Pc, du, nu, meta, nbr_table, *,
 # 2D passes A and B (cell-major [B, bs, bs, 4]; dim d on axis 2 - d)
 # ---------------------------------------------------------------------------
 
-def _halo2(X, meta, nbr_table, d: int, s: int):
-    """The side-s halo line along dim d of every block of ``X`` [B, bs,
-    bs, C]: the neighbor block's opposite edge line, or the own edge line
-    on a one-sided boundary side (`block_ops._halos`)."""
-    ax = 2 - d
-    bs = X.shape[ax]
-    first = X.narrow(ax, 0, 1)
-    last = X.narrow(ax, bs - 1, 1)
-    bnd = meta[:, 9 + 2 * d + s].view(-1, 1, 1, 1)
-    nb = nbr_table[:, 2 * d + s].long()
-    if s == 0:
-        return torch.where(bnd > 0, first, last[nb])
-    return torch.where(bnd > 0, last, first[nb])
-
-
-def _faces2(parts, meta, nbr_table, d: int, face_fn):
-    """``face_fn`` over the bs+1 faces along dim d of every block (face k
-    between cells k-1 and k, the halo lines at the ends), each part
-    extended by its halo lines, times the faces' masks (edge_valid[d][0]
-    on face 0, edge_valid[d][1] on face bs, 1 between): the padded
-    formulation of `block_ops.face_accumulate`, face for face the value of
-    its default one."""
-    ax = 2 - d
-    bs = parts[0].shape[ax]
-    ext = [torch.cat([_halo2(p, meta, nbr_table, d, 0), p,
-                      _halo2(p, meta, nbr_table, d, 1)], dim=ax)
-           for p in parts]
-    h = meta[:, d].view(-1, 1, 1, 1)
-    F = face_fn(tuple(e.narrow(ax, 0, bs + 1) for e in ext),
-                tuple(e.narrow(ax, 1, bs + 1) for e in ext), h, h)
-    B = meta.shape[0]
-    m = torch.ones((B, bs + 1), dtype=meta.dtype, device=meta.device)
-    m[:, 0] = meta[:, 3 + 2 * d]
-    m[:, bs] = meta[:, 4 + 2 * d]
-    shape = [B, 1, 1, 1]
-    shape[ax] = bs + 1
-    F = F * m.view(shape)
-    return F.narrow(ax, 0, bs), F.narrow(ax, 1, bs), h
-
-
-def _fold_add2(X, rows, vals, d: int) -> None:
-    """Add, in place, row ``rows[b, 2d + s]`` of the compact 2:1
-    corrections ``vals`` [V, bs, C] to block b's side-s edge line along dim
-    d of ``X`` [B, bs, bs, C], for both sides (a block without a row adds
-    the zero row last: no data-dependent shape, so that a CUDA graph can
-    capture it)."""
-    bs = X.shape[1]
-    vz = torch.cat([vals, vals.new_zeros((1,) + tuple(vals.shape[1:]))])
-    for s in (0, 1):
-        r = rows[:, 2 * d + s].long()
-        idx = torch.where(r >= 0, r, vz.shape[0] - 1)
-        X.select(2 - d, bs - 1 if s else 0).add_(vz[idx])
-
-
 def euler_pass_a_2d_ref(fluid: Fluid, P3, meta, nbr_table, rows, vals, *,
                         with_dt: bool, cfl: float):
     """Plain version of `euler_pass_a_2d`: the torch-op body of
-    `block_ops.euler_rhs_grid` for pass A (`block_ops.face_a` on each face,
+    `block_ops.euler_rhs_grid` for pass A (`scheme.face_a` on each face,
     the divergence, the 2:1 corrections added at the edge lines, the
     sensor and the dt bound), in its order, so that on the CPU it gives
     that body's values bit for bit."""
-    from .block_ops import face_a     # block_ops imports this module
-    from .operators import abs_select
-
     ncomp = P3.shape[-1]
     fn = face_a(with_dt)
     nu = torch.full(tuple(P3.shape[:-1]) + (1,), 1e-7, dtype=P3.dtype,
@@ -629,11 +576,16 @@ def euler_pass_a_2d_ref(fluid: Fluid, P3, meta, nbr_table, rows, vals, *,
         parts = (P3,)
         if with_dt:
             parts = (P3, P3[..., 2 + d:3 + d].abs() + sound)
-        Fm, Fp, h = _faces2(parts, meta, nbr_table, d, fn)
+        # the padded formulation of `block_ops.face_accumulate`, face for
+        # face the value of its default one
+        h = meta[:, d].view(-1, 1, 1, 1)
+        ext = [_faces(p, meta, nbr_table, d, 2 - d) for p in parts]
+        F = fn(tuple(e[0] for e in ext), tuple(e[1] for e in ext), h, h)
+        Fm, Fp = _minus_plus(F * ext[0][2], 2 - d)
         signed = ncomp + 1
         out = torch.cat([(Fp[..., :signed] - Fm[..., :signed]) / h,
                          (Fp[..., signed:] + Fm[..., signed:]) / h], dim=-1)
-        _fold_add2(out, rows, vals, d)
+        _fold_add(out, rows, vals, d, 2 - d)
         du.append(out[..., :ncomp].contiguous())
         G, U = out[..., ncomp:ncomp + 1], out[..., ncomp + 1:ncomp + 2]
         nu = torch.maximum(nu, (1e-7 + abs_select(G)) / (1e-7 + U))
@@ -678,9 +630,9 @@ def euler_pass_a_2d(fluid: Fluid, P3, meta, nbr_table, rows, vals, *,
     local step ``dt = cfl / wave-speed sum`` ``[B, bs, bs]`` (else None).
     ``rows`` int32 [B, 4] is the row of ``vals`` f32 [V, bs, 7 | 6] holding
     block b's correction of side s of dim d at column 2d + s, or -1
-    (`BlockTables.fold_rows`); a row's channels are `block_ops.face_a`'s,
+    (`BlockTables.fold_rows`); a row's channels are `scheme.face_a`'s,
     [du (4), G, U (, sf)], its index along the edge y for d = 0 and x for
-    d = 1 (`block_ops.interface_corrections`)."""
+    d = 1 (`scheme.interface_corrections`)."""
     B, bs = _grid2_geometry(P3)
     dev = P3.device
     _check("P", P3, (B, bs, bs, 4), dev)
@@ -707,17 +659,19 @@ def euler_pass_a_2d(fluid: Fluid, P3, meta, nbr_table, rows, vals, *,
 def euler_pass_b_2d_ref(fluid: Fluid, P3, du_x, du_y, nu, meta, nbr_table,
                         rows, vals, *, high_order: bool):
     """Plain version of `euler_pass_b_2d`: the torch-op body of
-    `block_ops.euler_rhs_grid` for pass B (`block_ops.face_b` on each
+    `block_ops.euler_rhs_grid` for pass B (`scheme.face_b` on each
     face, the divergence a dim with its 2:1 corrections, the dims summed),
     in its order, so that on the CPU it gives that body's R bit for bit."""
-    from .block_ops import face_b     # block_ops imports this module
-
     R = None
     for d, du in enumerate((du_x, du_y)):
-        Fm, Fp, h = _faces2((P3, du, nu[..., None]), meta, nbr_table, d,
-                            face_b(fluid, high_order, d))
+        h = meta[:, d].view(-1, 1, 1, 1)
+        ext = [_faces(p, meta, nbr_table, d, 2 - d)
+               for p in (P3, du, nu[..., None])]
+        F = face_b(fluid, high_order, d)(tuple(e[0] for e in ext),
+                                         tuple(e[1] for e in ext), h, h)
+        Fm, Fp = _minus_plus(F * ext[0][2], 2 - d)
         Rd = (Fp - Fm) / h
-        _fold_add2(Rd, rows, vals, d)
+        _fold_add(Rd, rows, vals, d, 2 - d)
         R = Rd if R is None else R + Rd
     return R
 
@@ -783,7 +737,7 @@ def _ifc_lanes(ifc, bs: int):
 
 
 def _ifc_rows_ref(h, ifc, bs: int, operands, face, n_signed: int):
-    """The rows of the interface faces, as `block_ops
+    """The rows of the interface faces, as `scheme
     .interface_corrections` forms them: ``operands(ids, d)`` gives the
     channel parts at flat cell ids, ``face(Wo, Wn, ho, hn, d)`` the face
     values with the owner on the minus side; the first ``n_signed``
@@ -811,11 +765,10 @@ def _ifc_rows_ref(h, ifc, bs: int, operands, face, n_signed: int):
 
 def interface_a_2d_ref(fluid: Fluid, P3, h, ifc, *, with_dt: bool):
     """Plain version of `interface_a_2d`: the edge cells gathered by row
-    table, `block_ops.face_a` on each face (its S_d = |u_d| + a taken on
-    the gathered cells), signed and divided as `block_ops
+    table, `scheme.face_a` on each face (its S_d = |u_d| + a taken on
+    the gathered cells), signed and divided as `scheme
     .interface_corrections` does, so that on the CPU it gives the rows of
     that glue bit for bit."""
-    from .block_ops import face_a     # block_ops imports this module
     cells = P3.reshape(-1, 4)
     fn = face_a(with_dt)
 
@@ -832,12 +785,11 @@ def interface_a_2d_ref(fluid: Fluid, P3, h, ifc, *, with_dt: bool):
 
 def interface_b_2d_ref(fluid: Fluid, P3, du_x, du_y, nu, h, ifc, *,
                        high_order: bool):
-    """Plain version of `interface_b_2d`: `block_ops.face_b` on each
+    """Plain version of `interface_b_2d`: `scheme.face_b` on each
     interface face from the gathered edge cells of P, du_d and nu (both
     dims' face functions, each row taking its own), signed and divided as
-    `block_ops.interface_corrections` does: on the CPU the rows of that
+    `scheme.interface_corrections` does: on the CPU the rows of that
     glue bit for bit."""
-    from .block_ops import face_b     # block_ops imports this module
     cells, gx, gy = (x.reshape(-1, 4) for x in (P3, du_x, du_y))
     nu_c = nu.reshape(-1, 1)
     fns = [face_b(fluid, high_order, d) for d in range(2)]
@@ -863,7 +815,7 @@ def _check_ifc(h, ifc, B: int, device) -> None:
 
 def interface_a_2d(fluid: Fluid, P3, h, ifc, *, with_dt: bool):
     """Pass A's 2:1 interface rows at nd = 2: ``vals [V, bs, 7 | 6]``,
-    `block_ops.face_a`'s channels [du (4), G, U (, sf)] on the faces of
+    `scheme.face_a`'s channels [du (4), G, U (, sf)] on the faces of
     each row of ``ifc`` (`BlockTables.ifc_rows`, rows in the order
     `BlockTables.fold_rows` numbers them) with ``h`` the blocks' spacing
     [B, 2]: the compact corrections of `euler_pass_a_2d`."""
@@ -890,7 +842,7 @@ def interface_a_2d(fluid: Fluid, P3, h, ifc, *, with_dt: bool):
 def interface_b_2d(fluid: Fluid, P3, du_x, du_y, nu, h, ifc, *,
                    high_order: bool):
     """Pass B's 2:1 interface rows at nd = 2: ``vals [V, bs, 4]``,
-    `block_ops.face_b` on the faces of each row of ``ifc`` from the state,
+    `scheme.face_b` on the faces of each row of ``ifc`` from the state,
     the pass-A gradients ``du_x``, ``du_y`` [B, bs, bs, 4] and the sensor
     ``nu`` [B, bs, bs]: the compact corrections of `euler_pass_b_2d`."""
     B, bs = _grid2_geometry(P3)

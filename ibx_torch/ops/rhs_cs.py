@@ -27,7 +27,7 @@ import torch
 from ..physics.fluid import Fluid, speed_of_sound
 from ..topology.blocks import BlockTables
 from ..utils.monitor import device_span
-from . import block_ops as bo
+from . import scheme
 from .kernels import (STENCIL_BLOCK_SIZES, euler_pass_a, euler_pass_a_2d,
                       euler_pass_b, euler_pass_b_2d, interface_a_2d,
                       interface_b_2d, rk2_update)
@@ -60,7 +60,7 @@ def _cs_edge_fetch(bt: BlockTables, arrays_cs, d: int,
                    extra_fn: Optional[Callable] = None,
                    channel_slice: Optional[Sequence] = None,
                    plane_fix: Optional[Sequence] = None):
-    """``fetch(s, blocks)`` for `block_ops.interface_corrections` over
+    """``fetch(s, blocks)`` for `scheme.interface_corrections` over
     channel-split operands: the side-s edge planes of the given blocks,
     channel-last [V, bs, bs, Ktot] (only the planes are gathered).
     ``channel_slice[i]``: optional (c0, c1) channel range of part i.
@@ -97,7 +97,7 @@ def _has_ifc(bt: BlockTables, d: int) -> bool:
 def _cols_add_cs(bt: BlockTables, Xc, cols, d: int, ch0: int, ch1: int,
                  src0: int = 0):
     """Add channels [src0, src0 + ch1 - ch0) of the per-side interface
-    corrections ``cols`` (from `block_ops.interface_corrections`) into
+    corrections ``cols`` (from `scheme.interface_corrections`) into
     channels [ch0, ch1) of ``Xc``'s side-s edge planes, in place."""
     bs = bt.block_size
     X5 = Xc.view(Xc.shape[0], Xc.shape[1], bs, bs, bs)[:, ch0:ch1]
@@ -177,7 +177,8 @@ def gradients_cs(bt: BlockTables, fluid: Fluid, Pc, *, with_dt: bool,
     du_cs, aux = euler_pass_a(fluid, Pc, bt.meta, bt.nbr_table,
                               with_dt=with_dt)
     fold_cols = []     # channel-last du corrections, (d, s) order
-    face_A = bo.cat_fn(bo.face_a(with_dt), [ncomp, 1] if with_dt else [ncomp])
+    face_A = scheme.cat_fn(scheme.face_a(with_dt),
+                           [ncomp, 1] if with_dt else [ncomp])
 
     signedA = [1.0] * (ncomp + 1) + [0.0] * (2 if with_dt else 1)
     with device_span("march.two_to_one", Pc.device):
@@ -191,7 +192,7 @@ def gradients_cs(bt: BlockTables, fluid: Fluid, Pc, *, with_dt: bool,
                     return torch.cat([pp, Sd[..., None]], dim=-1)
             else:
                 extraA = None
-            cols = bo.interface_corrections(
+            cols = scheme.interface_corrections(
                 bt, d, face_A, signedA, _cs_edge_fetch(bt, [Pc], d, extraA))
             # cols channels: [du(5), G, U (, sf)] -> kernel-A outputs
             if fold:
@@ -288,10 +289,10 @@ def _euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, high_order: bool,
                 bt, [Pc, du_cs, nu_cs], d,
                 channel_slice=[None, (d * 5, (d + 1) * 5), None],
                 plane_fix=du_fix)
-            face_B = bo.cat_fn(bo.face_b(fluid, high_order, d),
-                               [ncomp, 5, 1])
-            cols = bo.interface_corrections(bt, d, face_B, [1.0] * ncomp,
-                                            fetchB)
+            face_B = scheme.cat_fn(scheme.face_b(fluid, high_order, d),
+                                   [ncomp, 5, 1])
+            cols = scheme.interface_corrections(bt, d, face_B,
+                                                [1.0] * ncomp, fetchB)
             _cols_add_cs(bt, Rc, cols, d, 0, ncomp)
     for d in range(nd):
         if not bt.sp_owner[d].shape[0]:
@@ -302,7 +303,8 @@ def _euler_rhs_cs(bt: BlockTables, fluid: Fluid, Pc, high_order: bool,
                               _cs_cells(du_cs, d * 5, (d + 1) * 5, idx),
                               _cs_cells(nu_cs, 0, 1, idx)], dim=-1)
 
-        face_B = bo.cat_fn(bo.face_b(fluid, high_order, d), [ncomp, 5, 1])
+        face_B = scheme.cat_fn(scheme.face_b(fluid, high_order, d),
+                               [ncomp, 5, 1])
         _leftover_add(bt, d, rowsB, face_B, [1.0] * ncomp,
                       [(Rc, 0, 0, ncomp)])
 
@@ -341,7 +343,7 @@ def euler_rhs_grid_2d(bt: BlockTables, fluid: Fluid, P3, *,
     cell-major state ``[B, bs, bs, 4]``: the same (R3 [, dt3, (du3_list,
     nu3)]) structure, in four launches. `kernels.interface_a_2d` computes
     the 2:1 interface corrections of pass A from the state's edge cells
-    first (the faces `block_ops.interface_corrections` evaluates in the
+    first (the faces `scheme.interface_corrections` evaluates in the
     torch-op body), and pass A (`kernels.euler_pass_a_2d`) folds them into
     its sums before it forms the sensor and dt; then
     `kernels.interface_b_2d` the corrections of pass B from the edge cells
@@ -354,37 +356,18 @@ def euler_rhs_grid_2d(bt: BlockTables, fluid: Fluid, P3, *,
     tables = (bt.meta, bt.nbr_table, bt.fold_rows)
     with device_span("march.rhs", dev):
         with device_span("march.two_to_one", dev):
-            valsA = corrections_a_2d(bt, fluid, P3, with_dt=with_dt)
+            valsA = interface_a_2d(fluid, P3, bt.h, bt.ifc_rows,
+                                   with_dt=with_dt)
         du_x, du_y, nu, dt3 = euler_pass_a_2d(fluid, P3, *tables, valsA,
                                               with_dt=with_dt, cfl=cfl)
-        du3, nu3 = [du_x, du_y], nu[..., None]
         with device_span("march.two_to_one", dev):
-            valsB = corrections_b_2d(bt, fluid, P3, du3, nu3,
-                                     high_order=high_order)
+            valsB = interface_b_2d(fluid, P3, du_x, du_y, nu, bt.h,
+                                   bt.ifc_rows, high_order=high_order)
         R3 = euler_pass_b_2d(fluid, P3, du_x, du_y, nu, *tables, valsB,
                              high_order=high_order)
     if with_dt:
-        return R3, dt3, (du3, nu3)
+        return R3, dt3, ([du_x, du_y], nu[..., None])
     return R3
-
-
-def corrections_a_2d(bt: BlockTables, fluid: Fluid, P3, *, with_dt: bool):
-    """Pass A's 2:1 interface corrections at nd = 2 (`block_ops.face_a` on
-    the interface faces, from the state's edge cells and, with dt, the
-    wave speed S_d = |u_d| + a taken on them), compact for
-    `kernels.euler_pass_a_2d`: [V, bs, 7 | 6], one launch of
-    `kernels.interface_a_2d` over `BlockTables.ifc_rows`."""
-    return interface_a_2d(fluid, P3, bt.h, bt.ifc_rows, with_dt=with_dt)
-
-
-def corrections_b_2d(bt: BlockTables, fluid: Fluid, P3, du3, nu3, *,
-                     high_order: bool):
-    """Pass B's 2:1 interface corrections at nd = 2 (`block_ops.face_b` on
-    the interface faces, from the edge cells of P, du_d and nu [B, bs, bs,
-    1]), compact for `kernels.euler_pass_b_2d`: [V, bs, 4], one launch of
-    `kernels.interface_b_2d`."""
-    return interface_b_2d(fluid, P3, du3[0], du3[1], nu3.squeeze(-1), bt.h,
-                          bt.ifc_rows, high_order=high_order)
 
 
 def rk2_step_cs(bt: BlockTables, fluid: Fluid, Pc, apply_bcs_cs: Callable,

@@ -20,8 +20,9 @@ On a CUDA state the step runs captured in CUDA graphs (`PointImplicitStep`,
 the counterpart of the JAX package's ``jax.jit`` over the step): a head
 (`newton_map`, `linearize` with its Hutchinson probes and the solve's
 head), the solve's body replayed while its stop rule holds, and a tail
-(``Q1``, ``P1``). The capture is kept on the `BlockTables` (``bt``) for
-the step's last arguments: a step with others (another ``cfl``, or a new
+(``Q1``, ``P1``). One capture is kept for each `BlockTables` (``bt``),
+for the step's last arguments, and freed with the tables
+(`step_graphs`): a step with others (another ``cfl``, or a new
 ``apply_bcs``, ``active`` or ``generator`` object) captures anew and drops
 it. Pass the same objects from step to step to replay one capture.
 """
@@ -36,8 +37,16 @@ from ..ops.block_ops import euler_rhs_block
 from ..physics.fluid import (Fluid, physicality_guard, primitive2state,
                              state2primitive)
 from ..topology.blocks import BlockTables
-from ..utils.graphs import GraphedLoop, Piece, use_graph
+from ..utils.graphs import GraphedLoop, Graphs, Piece, use_graph
 from .point_implicit import SolveLoop, _default_generator, linearize
+
+
+def step_graphs(bt: BlockTables) -> Graphs:
+    """The step's captures on ``bt``, made at its first step there. They
+    are an attribute of the tables, not an entry of a module-level cache:
+    a capture holds the tables it reads, so such a cache would keep them
+    alive for ever, while an attribute is freed with them."""
+    return vars(bt).setdefault("_point_implicit_graphs", Graphs())
 
 
 def newton_map(bt: BlockTables, fluid: Fluid, P, apply_bcs: Callable, *,
@@ -160,8 +169,8 @@ def point_implicit_step(
     Hutchinson probes (a generator seeded 0 on P's device by default).
     ``graph`` follows `utils.graphs.use_graph`: on a CUDA state the step
     is captured at its first call with these arguments and replayed while
-    they stay (`PointImplicitStep`, kept on ``bt`` until a step with
-    other arguments replaces it).
+    they stay (`PointImplicitStep`, kept for ``bt`` until a step with
+    other arguments replaces it, `step_graphs`).
 
     Returns (P_new, linear_residual_ratio).
     """
@@ -179,5 +188,5 @@ def point_implicit_step(
             n_hutchinson_samples=n_hutchinson_samples, n_krylov=n_krylov,
             relax=relax, high_order=high_order,
             freeze_limiter=freeze_limiter, generator=generator)
-    return bt._graphs.loop("point_implicit_step", key, make,
-                           use_graph(graph, P))(P)
+    return step_graphs(bt).loop("point_implicit_step", key, make,
+                                use_graph(graph, P))(P)

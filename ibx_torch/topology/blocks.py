@@ -24,8 +24,6 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..utils.graphs import Graphs
-
 
 @dataclasses.dataclass
 class BlockTables:
@@ -86,10 +84,6 @@ class BlockTables:
     # sign vectors of the accumulations, one per mask (`signs`)
     _signs: Dict[Tuple[float, ...], torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
-    # the point-implicit step on these tables (`solve.point_implicit_euler`)
-    # captured on the card for its last arguments
-    _graphs: Graphs = dataclasses.field(default_factory=Graphs, init=False,
-                                        repr=False, compare=False)
 
     def signs(self, signed_mask) -> torch.Tensor:
         """f32 [len(signed_mask)] on this table's device: -1 on the

@@ -46,6 +46,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..ops import kernels
+
 # ring slots a device keeps per recording (16 bytes a slot)
 RING_SLOTS = 1 << 18
 # tries of the globaltimer calibration, the best kept
@@ -148,7 +150,6 @@ class _Ring:
 
     def stamp(self, tag: int) -> None:
         if self.on_card:
-            from ..ops import kernels
             kernels.stamp(self.slots, self.head, tag)
             return
         if self.n < self.capacity:
@@ -167,7 +168,6 @@ class _Ring:
         the uncertainty."""
         if not self.on_card:
             return
-        from ..ops import kernels
         kernels.stamp(self.cal, self.cal_head, 0)   # checks and loads
         # the launch alone between the two host times: the library call
         # with its arguments made beforehand

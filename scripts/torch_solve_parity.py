@@ -39,6 +39,7 @@ def main() -> int:
 
     import ibx_torch.ops.block_ops as bo
     import ibx_torch.ops.operators as ops
+    import ibx_torch.ops.scheme as sc
     from ibx_torch.convert import state_from_numpy
     from ibx_torch.physics.fluid import make_fluid
     from ibx_torch.solve import Linearization
@@ -71,18 +72,20 @@ def main() -> int:
         print(f"{tag}: port vs JAX op by op {chan_err(op_by_op, out):.3e}; "
               f"port vs JAX jitted {chan_err(jitted, out):.3e}; JAX jitted "
               f"vs op by op {chan_err(op_by_op, jitted):.3e}", flush=True)
-        saved = (ops.abs_select, bo.abs_select, ops.minmod, bo.minmod)
+        saved = (ops.abs_select, bo.abs_select, sc.abs_select, ops.minmod,
+                 sc.minmod)
 
         def minmod_abs(u1, u2):
             return torch.minimum(u1.abs(), u2.abs()) * (
                 torch.sign(u1) + torch.sign(u2)) / 2
 
-        ops.abs_select = bo.abs_select = torch.abs
-        ops.minmod = bo.minmod = minmod_abs
+        ops.abs_select = bo.abs_select = sc.abs_select = torch.abs
+        ops.minmod = sc.minmod = minmod_abs
         try:
             out_abs = port_jvp(v, freeze_limiter)
         finally:
-            ops.abs_select, bo.abs_select, ops.minmod, bo.minmod = saved
+            (ops.abs_select, bo.abs_select, sc.abs_select, ops.minmod,
+             sc.minmod) = saved
         print(f"{tag}: with torch.abs, port vs JAX op by op "
               f"{chan_err(op_by_op, out_abs):.3e}", flush=True)
 

@@ -33,7 +33,7 @@ from ibx.topology.blocks import _colid
 from ibx_torch.convert import tables_from_numpy
 from ibx_torch.ops import block_ops as bo
 from ibx_torch.ops import kernels as K
-from ibx_torch.ops import rhs_cs
+from ibx_torch.ops import rhs_cs, scheme
 from ibx_torch.ops.rhs_cs import pallas_eligible
 from ibx_torch.physics.bc import apply_flow_bc, flow_bc
 from ibx_torch.physics.fluid import make_fluid, physicality_guard
@@ -263,8 +263,8 @@ def test_face_ops_match_ibx(setup, op, d):
         assert chan_err(ref, out, axis=-1) < 1e-5, chan_err(ref, out, -1)
         return
     ref = jbo.interface_corrections(bt, d, W3j, jfn, 5, signed)
-    out = bo.interface_corrections(tb, d, pfn, signed,
-                                   bo._grid_edge_fetch(tb, (W3,), d))
+    out = scheme.interface_corrections(tb, d, pfn, signed,
+                                       bo._grid_edge_fetch(tb, (W3,), d))
     for s in (0, 1):
         assert (ref[s] is None) == (out[s] is None)
         blocks, vals = out[s]

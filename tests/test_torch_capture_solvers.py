@@ -356,9 +356,9 @@ def test_point_implicit_step_split_matches_todays_step(blocks, guarded,
         P, r = point_implicit_step(bt, fl, P, case.apply_bcs,
                                    generator=gens[1], **kw)
         assert torch.equal(P, Pr) and torch.equal(r, rr)
-        assert bt._graphs.last.iterations == it
+        assert point_implicit_euler.step_graphs(bt).last.iterations == it
     assert torch.isfinite(P).all() and float(r) < 1.0
-    assert not bt._graphs.loops
+    assert not point_implicit_euler.step_graphs(bt).loops
     with pytest.raises(ValueError, match="CUDA state"):
         point_implicit_step(bt, fl, P, case.apply_bcs, graph=True, **kw)
 
@@ -401,7 +401,7 @@ def test_a_keeper_holds_one_capture_a_loop(rae_gather, blocks, monkeypatch,
     else:
         case = blocks["nd2"]
         mod, cls, X = point_implicit_euler, "PointImplicitStep", case.P0
-        monkeypatch.setattr(case.bt, "_graphs", graphs)
+        monkeypatch.setattr(mod, "step_graphs", lambda bt: graphs)
 
         def call(x):
             return point_implicit_step(case.bt, case.fluid, X,

@@ -1,8 +1,9 @@
 """Package rules of the port: no JAX or `ibx` import anywhere in
-`ibx_torch` or `chip_smoke.py`; every name a subpackage of `ibx` exports
-is exported by the port's, or is listed as not ported yet with its ROADMAP
-item; entry points default to the card and refuse to run without one; CPU
-tensors never count as kernel launches."""
+`ibx_torch` or `chip_smoke.py`; the ops layer's imports point one way;
+every name a subpackage of `ibx` exports is exported by the port's, or is
+listed as not ported yet with its ROADMAP item; entry points default to
+the card and refuse to run without one; CPU tensors never count as kernel
+launches."""
 
 import importlib
 
@@ -80,8 +81,8 @@ def test_scan_covers_the_2d_modules():
     want |= {"ibx_torch/cases/wing3d_rans_fas.py",
              "ibx_torch/geometry/cutcell.py", "ibx_torch/io/vtk.py",
              "ibx_torch/utils/pytree.py"}
-    # the port's bench
-    want |= {"ibx_torch/bench.py"}
+    # the scheme's torch-op face arithmetic
+    want |= {"ibx_torch/ops/scheme.py"}
     assert want <= names, want - names
     for f in _port_files():
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -93,6 +94,83 @@ def test_scan_covers_the_2d_modules():
         assert not paths, (f, paths)
     from ibx_torch.cases.rae2822 import RAE_DAT
     assert (ROOT / "ibx_torch") in Path(RAE_DAT).resolve().parents
+
+
+def _port_imports(path):
+    """``(module, in_function)`` for each `ibx_torch` module the file
+    imports, at every depth: a ``from`` import of a submodule names the
+    submodule, of anything else the module it comes from."""
+    pkg = path.relative_to(ROOT).parts[:-1]
+    out = []
+
+    def visit(node, in_function):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            in_function = True
+        if isinstance(node, ast.Import):
+            out.extend((a.name, in_function) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = pkg[:len(pkg) - node.level + 1]
+                base = ".".join(parts + ((base,) if base else ()))
+            for a in node.names:
+                sub = f"{base}.{a.name}"
+                f = ROOT / sub.replace(".", "/")
+                is_mod = f.with_suffix(".py").exists() or f.is_dir()
+                out.append((sub if is_mod else base, in_function))
+        for child in ast.iter_child_nodes(node):
+            visit(child, in_function)
+
+    visit(ast.parse(path.read_text(), filename=str(path)), False)
+    return [(m, inner) for m, inner in out
+            if m.split(".")[0] == "ibx_torch"]
+
+
+def _within(module, prefixes):
+    """Whether ``module`` is, or lies inside, an `ibx_torch` module that
+    ``prefixes`` names ("" names the package)."""
+    tops = ["ibx_torch." + p if p else "ibx_torch" for p in prefixes]
+    return any(module == t or module.startswith(t + ".") for t in tops)
+
+
+# the one-way ops layer: physics, geometry, ops.stencil, ops.operators <-
+# ops.scheme <- ops.kernels <- utils <- topology <- ops.rhs_cs <-
+# ops.block_ops <- convert <- solve, parallel <- cases ("X <- Y": Y may
+# import X). A case: the files, the modules they must not import, the
+# exceptions, and whether only imports inside a function count.
+LAYERS = {
+    "kernels_import_no_rhs": (("ops/kernels.py",),
+                              ("ops.block_ops", "ops.rhs_cs"), (), False),
+    "scheme_imports_no_kernel_or_rhs": (
+        ("ops/scheme.py",), ("ops.kernels", "ops.rhs_cs", "ops.block_ops"),
+        (), False),
+    "rhs_cs_imports_no_block_ops": (("ops/rhs_cs.py",), ("ops.block_ops",),
+                                    (), False),
+    "utils_import_only_the_kernels_of_ops": (
+        ("utils/*.py",), ("ops", "solve", "parallel", "cases"),
+        ("ops.kernels",), False),
+    "topology_imports_no_capture_or_solver": (
+        ("topology/*.py",), ("utils.graphs", "solve", "parallel", "cases"),
+        (), False),
+    "no_port_import_inside_a_function": (
+        ("ops/*.py", "utils/*.py", "topology/*.py"), ("",), (), True),
+}
+
+
+@pytest.mark.parametrize("rule", list(LAYERS))
+def test_ops_layer_imports_point_one_way(rule):
+    """Each rule of the layering, over every import of its files, those
+    inside functions included (a function-level import hides a cycle, it
+    does not remove it)."""
+    globs, banned, allowed, inner_only = LAYERS[rule]
+    files = sorted({f for g in globs for f in (ROOT / "ibx_torch").glob(g)})
+    assert files, globs
+    bad = [f"{f.relative_to(ROOT)}: {m}" for f in files
+           for m, in_function in _port_imports(f)
+           if (in_function or not inner_only) and _within(m, banned)
+           and not _within(m, allowed)]
+    assert not bad, bad
 
 
 # names of `ibx.<pkg>.__all__` the port does not have yet, each with the

@@ -1,7 +1,7 @@
 """The 2D 2:1 interface rows (`kernels.interface_a_2d` / `interface_b_2d`
 and their row table `BlockTables.ifc_rows`) on CPU tensors, where the
 plain versions run: bit for bit the rows of the torch-op glue they
-replace (`block_ops.interface_corrections` over `block_ops
+replace (`scheme.interface_corrections` over `block_ops
 ._grid_edge_fetch`, concatenated in the order `BlockTables.fold_rows`
 numbers them), on the port's RAE2822 at wall_h=8e-2 (2:1 rows on both
 sides of both dims) and on a synthetic bs=4 mesh that holds both fine-side
@@ -16,7 +16,7 @@ import torch
 from ibx_torch.cases import build_rae2822
 from ibx_torch.ops import block_ops as bo
 from ibx_torch.ops import kernels as K
-from ibx_torch.ops import rhs_cs
+from ibx_torch.ops import rhs_cs, scheme
 from ibx_torch.physics.fluid import make_fluid, speed_of_sound
 from ibx_torch.topology.blocks import BlockTables
 
@@ -61,7 +61,7 @@ def pass_b_operands(bt, fl, P3, seed):
     random fields (nu as 10^U(-7, 0), so that the JST blend does not hide
     the high-order face value)."""
     if seed is None:
-        vals = rhs_cs.corrections_a_2d(bt, fl, P3, with_dt=False)
+        vals = K.interface_a_2d(fl, P3, bt.h, bt.ifc_rows, with_dt=False)
         du_x, du_y, nu, _ = K.euler_pass_a_2d(
             fl, P3, bt.meta, bt.nbr_table, bt.fold_rows, vals,
             with_dt=False, cfl=0.7)
@@ -84,15 +84,16 @@ def glue_rows(bt, fl, P3, pass_, flag, du=None):
             if flag:
                 parts += (P3[..., 2 + d:3 + d].abs()
                           + speed_of_sound(fl, P3[..., 1])[..., None],)
-            face = bo.cat_fn(bo.face_a(flag), [4, 1] if flag else [4])
+            face = scheme.cat_fn(scheme.face_a(flag),
+                                 [4, 1] if flag else [4])
             signed = [1.0] * 5 + [0.0] * (2 if flag else 1)
         else:
             du_x, du_y, nu = du
             parts = (P3, (du_x, du_y)[d], nu[..., None])
-            face = bo.cat_fn(bo.face_b(fl, flag, d), [4, 4, 1])
+            face = scheme.cat_fn(scheme.face_b(fl, flag, d), [4, 4, 1])
             signed = [1.0] * 4
-        cols = bo.interface_corrections(bt, d, face, signed,
-                                        bo._grid_edge_fetch(bt, parts, d))
+        cols = scheme.interface_corrections(
+            bt, d, face, signed, bo._grid_edge_fetch(bt, parts, d))
         rows += [c[1] for c in cols if c is not None]
     return torch.cat(rows)
 
@@ -222,7 +223,7 @@ def test_synthetic_mesh_rows(pass_, flag):
 
 
 def test_route_takes_no_glue(rae, monkeypatch):
-    """The 2D kernel route evaluates no `block_ops.interface_corrections`:
+    """The 2D kernel route evaluates no `scheme.interface_corrections`:
     its 2:1 rows come from the interface wrappers, once a pass."""
     bt, fl = rae.bt, make_fluid()
     P3 = flow_state(rae)
@@ -235,7 +236,7 @@ def test_route_takes_no_glue(rae, monkeypatch):
     def glue(*a, **k):
         raise AssertionError("the 2D route ran the torch-op glue")
 
-    monkeypatch.setattr(bo, "interface_corrections", glue)
+    monkeypatch.setattr(scheme, "interface_corrections", glue)
     R3, dt3, _ = rhs_cs.euler_rhs_grid_2d(bt, fl, P3, with_dt=True, cfl=0.7)
     assert called == ["interface_a_2d", "interface_b_2d"]
     assert bool(torch.isfinite(R3).all()) and bool((dt3 > 0).all())

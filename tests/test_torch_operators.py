@@ -19,8 +19,8 @@ from ibx.geometry import Line, build_mesh, polyline
 from ibx.ops import operators as jo
 from ibx.topology import Domain as JxDomain
 
-from ibx_torch.ops import block_ops as bo
 from ibx_torch.ops import operators as to
+from ibx_torch.ops import scheme
 
 from test_torch_stencil import assert_tables_equal, port_partition, rel_err
 
@@ -174,7 +174,7 @@ def test_minmod_is_one_definition():
     ref = np.asarray(jo.minmod(jnp.asarray(a), jnp.asarray(b)))
     assert np.array_equal(ref, to.minmod(torch.tensor(a),
                                          torch.tensor(b)).numpy())
-    assert bo.minmod is to.minmod
+    assert scheme.minmod is to.minmod
 
 
 MUSCL_KW = {

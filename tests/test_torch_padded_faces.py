@@ -19,6 +19,7 @@ from ibx.ops import block_ops as jbo
 from ibx.physics import make_fluid as jx_make_fluid
 
 from ibx_torch.ops import block_ops as bo
+from ibx_torch.ops.scheme import face_a
 from ibx_torch.physics.fluid import make_fluid
 
 from test_torch_block_ops_2d import _face_fns, perturbed, port_case
@@ -75,7 +76,7 @@ def test_face_accumulate_padded_bit_equal(mesh, monkeypatch):
     for d in range(nd):
         concat, padded = _both(monkeypatch, lambda: (
             bo.face_accumulate(tb, d, W3, fn, 5, SIGNED),
-            bo.face_accumulate(tb, d, (P3, S3), bo.face_a(True),
+            bo.face_accumulate(tb, d, (P3, S3), face_a(True),
                                P3.shape[-1] + 3, signedA)))
         assert _equal(concat, padded), d
 
