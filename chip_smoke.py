@@ -256,6 +256,18 @@ ends the run with a non-zero exit:
      corrections of the route's glue, on the wall_h=8e-2 flagship and on
      the full 881,152-cell tables (2:1 rows on both sides of both dims);
      and the kernel route against the torch-op body on the card;
+ 36. partial 2:1 rows (right after phase 34, in a process of its own:
+     `python3 chip_smoke.py --phase 36`): the four ranks' local tables of
+     `build_rae2822_block_sharded(4)` at wall_h=4e-2 and at the flagship
+     (881,152 cells), each with its generic leftover faces carried by
+     partial coarse rows (2, 6, 3, 4 and 4, 16, 13, 4 of them, by table
+     and by the ``blocks.partial_rows`` counter) and admitted by the
+     gate: phase 10's and phase 35's parity on each local grid, the rows'
+     absent lanes zero, an RHS on the 2D kernel route by the
+     ``rhs.route.*`` counters and by launches; then four gloo ranks on
+     the card marching wall_h=4e-2 eagerly 5 steps while recording (every
+     RHS call on the kernel route, none on the torch-op body; 2e-5 per
+     channel against one device);
 then one JSON line of per-kernel numbers (with each kernel's launches a
 step on the sharded channel-split march), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -354,6 +366,9 @@ SHARD_RAE = dict(wall_h=4e-2, feature_h=2e-2, cfl=0.7)   # 21,760 cells
 SHARD_STEPS = 5
 SHARD_BLOCK_TOL = 2e-5   # 5 sharded block steps vs one device, per channel
 SHARD_RES_RTOL = 1e-3
+# partial 2:1 rows each of the four ranks' local tables takes (phase 36):
+# at SHARD_RAE and at the flagship
+PARTIAL_ROWS = {"small": [2, 6, 3, 4], "flagship": [4, 16, 13, 4]}
 SHARD_GATHER_STEPS = 3
 SHARD_GATHER_TOL = 1e-5
 SHARD_SPHERE_WALL_H = 0.1    # bs=8, 348,160 cells
@@ -1021,6 +1036,121 @@ def interface_phase(root, dev, smi):
     log(f"[ifc2d] phase 10's interface checks took "
         f"{time.perf_counter() - t0:.1f} s; card: {smi}")
     return rows
+
+
+def absent_lanes(bt):
+    """[V, bs] True on the lanes of a partial coarse row that face its
+    absent (-1) fine neighbor: lanes i < bs/2 face the low one."""
+    tab = bt.ifc_rows.long()
+    i = torch.arange(bt.block_size, device=tab.device)
+    nb = torch.where(2 * i < bt.block_size, tab[:, 4:5], tab[:, 5:6])
+    return (tab[:, 3:4] == 1) & (nb < 0)
+
+
+def partial_rows_phase(dev, smi):
+    """Phase 36 (``--phase 36``, a process of its own, as it spawns ranks):
+    the four ranks' local tables at SHARD_RAE and at the flagship, each
+    built while recording: its partial coarse rows (`BlockTables
+    .n_partial_rows` and the ``blocks.partial_rows`` counter, equal to
+    PARTIAL_ROWS), admitted by the gate; on each local grid from a
+    perturbed state, phases 10's and 35's parity (the interface kernels
+    and the 2D passes against their plain versions, the kernel route
+    against the torch-op body with its `sp_*` leftovers), the absent
+    lanes' rows zero, and two RHS calls counted on the 2D kernel route
+    with four launches each. Then four gloo ranks on the card march
+    SHARD_RAE eagerly while recording (`_partial_rows_rank`)."""
+    from types import SimpleNamespace
+
+    from ibx_torch.cases import build_rae2822
+    from ibx_torch.ops import kernels as K
+    from ibx_torch.ops.block_ops import euler_rhs_grid
+    from ibx_torch.ops.rhs_cs import pallas_eligible
+    from ibx_torch.parallel import DeviceMesh, ShardedBlockDomain, spawn
+    from ibx_torch.utils import monitor
+
+    t0 = time.perf_counter()
+    for label, cfg in (("small", SHARD_RAE), ("flagship", RAE_FLAGSHIP)):
+        case = build_rae2822(device=dev, **cfg)
+        P, fl = perturbed2d(case), case.fluid
+        for p in range(SHARD_RANKS):
+            with monitor.tracing():
+                sbd = ShardedBlockDomain(case.dom,
+                                         DeviceMesh(p, SHARD_RANKS, dev))
+            got = monitor.records()["counters"].get("blocks.partial_rows", 0)
+            bt = sbd.bt
+            log(f"[partial36] {label} ({case.dom.ncells} cells) rank {p}: "
+                f"{bt.n_blocks} local blocks, {bt.n_sparse} leftover faces, "
+                f"{bt.n_partial_rows} partial rows (counted {got}) of "
+                f"{bt.ifc_rows.shape[0]}, gate {pallas_eligible(bt)}")
+            assert pallas_eligible(bt)
+            assert bt.n_partial_rows == got == PARTIAL_ROWS[label][p]
+            # the dump block holds a state of p = 1, T = 1 rather than
+            # zeros, so that its dt is finite on both sides
+            loc = sbd.distribute_local(P, fill=1.0).contiguous()
+            ns = SimpleNamespace(bt=bt, fluid=fl, cfl=case.cfl)
+            name = f"{label} rank {p}'s local grid"
+            interface2d_parity(ns, loc, name)
+            kernel2d_parity(ns, loc, name)
+            absent = absent_lanes(bt)
+            assert int(absent.sum()) == bt.n_partial_rows * bt.block_size // 2
+            va = K.interface_a_2d(fl, loc, bt.h, bt.ifc_rows, with_dt=True)
+            du_x, du_y, nu, _ = K.euler_pass_a_2d(
+                fl, loc, bt.meta, bt.nbr_table, bt.fold_rows, va,
+                with_dt=True, cfl=case.cfl)
+            vb = K.interface_b_2d(fl, loc, du_x, du_y, nu, bt.h, bt.ifc_rows,
+                                  high_order=True)
+            assert not va[absent].any() and not vb[absent].any()
+            assert bool(va[~absent].abs().amax(dim=-1).gt(0).all())
+            K.reset_launches()
+            with monitor.tracing():
+                for with_dt in (True, False):
+                    euler_rhs_grid(bt, fl, loc, with_dt=with_dt,
+                                   cfl=case.cfl)
+            routes = monitor.records()["counters"]
+            assert routes == {"rhs.route.kernels_2d": 2}, routes
+            assert dict(K.launches) == counts(2, **RHS2D), K.launches
+            del sbd
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    spawn(_partial_rows_rank, SHARD_RANKS, backend="gloo", device="cuda",
+          args=("cuda",), threads=2)
+    log(f"[partial36] phase 36 took {time.perf_counter() - t0:.1f} s; "
+        f"card: {smi}")
+
+
+def _partial_rows_rank(device):
+    """Phase 36 on one of four gloo ranks on the one card: the SHARD_RAE
+    block march built and marched SHARD_STEPS steps eagerly while
+    recording: the local table's partial rows counted, every RHS call on
+    the 2D kernel route and none on the torch-op body, and the state
+    within SHARD_BLOCK_TOL of the single-device march's."""
+    import torch.distributed as dist
+
+    from ibx_torch.cases import build_rae2822, build_rae2822_block_sharded
+    from ibx_torch.utils import monitor
+
+    rank = dist.get_rank()
+    case = build_rae2822(device=torch.device(device), **SHARD_RAE)
+    P = case.P0
+    for _ in range(SHARD_STEPS):
+        P, _ = case.step(P)
+    ref = P.cpu()
+    with monitor.tracing():
+        sbd, step, P, _ = build_rae2822_block_sharded(
+            SHARD_RANKS, case=case, cfl=case.cfl)
+        for _ in range(SHARD_STEPS):
+            P, _ = step(P)
+    c = monitor.records()["counters"]
+    out = torch.as_tensor(sbd.collect(P))
+    err = chan_err(ref, out)
+    log(f"[partial36] [rank {rank}] {SHARD_STEPS} eager steps: counters "
+        f"{c}; vs one device (per channel) {err:.3e} (tol "
+        f"{SHARD_BLOCK_TOL:g})")
+    assert c.get("rhs.route.ops", 0) == 0, c
+    assert c.get("rhs.route.kernels_2d") == 2 * SHARD_STEPS, c
+    assert c.get("blocks.partial_rows") == PARTIAL_ROWS["small"][rank], c
+    assert err < SHARD_BLOCK_TOL, err
 
 
 def rae2822_phases(root, dev, smi):
@@ -3554,6 +3684,11 @@ def main() -> int:
                         "--phase", "34"], cwd=root)
     if r.returncode != 0:
         raise AssertionError(f"phase 34 exited {r.returncode}")
+    # phase 36 in a process of its own too: it spawns four ranks
+    r = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                        "--phase", "36"], cwd=root)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 36 exited {r.returncode}")
 
     rows, blk3d, case3d = sphere_phases(dev)
     t0 = time.perf_counter()
@@ -3613,9 +3748,9 @@ def main() -> int:
 
 
 def phase_main(phase: str) -> int:
-    """One phase alone, in a process of its own (``--phase 34``, or
-    ``--phase 10``'s interface checks, which print the interface kernels'
-    rows as the last line)."""
+    """One phase alone, in a process of its own (``--phase 34``, ``--phase
+    36``, or ``--phase 10``'s interface checks, which print the interface
+    kernels' rows as the last line)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -3630,6 +3765,8 @@ def phase_main(phase: str) -> int:
     dev, smi = torch.device("cuda"), smi.splitlines()[0]
     if phase == "34":
         trace_phase(dev, smi)
+    elif phase == "36":
+        partial_rows_phase(dev, smi)
     else:
         rows = interface_phase(root, dev, smi)
         print(json.dumps({"interface_rows": rows}), flush=True)
@@ -3637,6 +3774,7 @@ def phase_main(phase: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["34"], ["10"]):
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["34"], ["10"],
+                                                          ["36"]):
         sys.exit(phase_main(sys.argv[2]))
     sys.exit(main())

@@ -12,7 +12,11 @@
 //   fine side: one face, against cell fs_off bs/2 + i/2 of the coarse
 //     neighbor's facing edge line, whose spacing is 2h;
 //   coarse side: two sub-faces, against cells 2i and 2i + 1 of the two
-//     fine neighbors' facing edge lines laid end to end, spacing h/2.
+//     fine neighbors' facing edge lines laid end to end, spacing h/2. A
+//     partial coarse row (a sharded rank's halo block, one of whose fine
+//     neighbors lies beyond the local grid) has -1 for that neighbor: the
+//     lanes that face it read nothing and write zero, as the torch-op body
+//     gives those cells no face on that side.
 // The owner of a face is its minus-side cell, so on s = 1 it is the own
 // cell and on s = 0 the neighbor's. Pass A's face (`block_ops.face_a`):
 //   Pf = (P_o h_n + P_n h_o)/(h_o + h_n), fd = p_n - p_o, |fd| and, with
@@ -24,7 +28,8 @@
 //
 // Row table `ifc` [V, 6] int32 (`BlockTables.ifc_rows`): own block, d, s,
 // kind (0 fine side, 1 coarse side), then the coarse neighbor and fs_off
-// on the fine side, the two fine neighbors (low, high) on the coarse side.
+// on the fine side, the two fine neighbors (low, high; -1 where absent) on
+// the coarse side.
 // Output `vals` [V, bs, K], K = 7 (6 without dt) channels [du (4), G, U
 // (, sf)] for pass A and 4 (R) for pass B.
 //
@@ -99,6 +104,13 @@ __device__ __forceinline__ long long facing_cell(const int* __restrict__ ifc,
   return edge_cell(m < bs ? row[4] : row[5], l.d, 1 - l.s, m & (bs - 1), lbs);
 }
 
+// Whether the lane is one of a partial coarse row's that face its absent
+// fine neighbor: lanes i < bs/2 face the low one, the others the high one.
+__device__ __forceinline__ bool absent(const int* __restrict__ ifc,
+                                       const Lane& l, int lbs) {
+  return l.coarse && ifc[6LL * l.r + (2 * l.i < (1 << lbs) ? 4 : 5)] < 0;
+}
+
 // Pass A's face between o (minus side) and n, each operation rounded once.
 template <int K>
 __device__ __forceinline__ void face_a(float4 o, float4 n, float ho,
@@ -134,6 +146,12 @@ __global__ void __launch_bounds__(THREADS)
   const int t = blockIdx.x * THREADS + threadIdx.x;
   if (t >= n) return;
   const Lane l = lane_of(ifc, h, t, lbs);
+  float* out = vals + (long long)t * K;
+  if (absent(ifc, l, lbs)) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = 0.f;
+    return;
+  }
   const float4 c = P[l.cell];
   // the facing cells' spacing: 2h on the fine side, h/2 on the coarse
   const float hf = l.coarse ? __fmul_rn(l.h, 0.5f) : __fmul_rn(2.f, l.h);
@@ -148,7 +166,6 @@ __global__ void __launch_bounds__(THREADS)
     for (int k = 0; k < K; ++k) tot[k] = q ? __fadd_rn(tot[k], F[k]) : F[k];
   }
   const float rh = __frcp_rn(l.h);
-  float* out = vals + (long long)t * K;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     // du (4) and G are signed, U and sf are not
@@ -177,6 +194,10 @@ __global__ void __launch_bounds__(THREADS)
   const int t = blockIdx.x * THREADS + threadIdx.x;
   if (t >= n) return;
   const Lane l = lane_of(ifc, h, t, lbs);
+  if (absent(ifc, l, lbs)) {
+    vals[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
   const float4* du = l.d == 0 ? du_x : du_y;
   float Pc[4], gc[4];
   unpack(P[l.cell], Pc);

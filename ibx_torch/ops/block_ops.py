@@ -22,7 +22,7 @@ import torch
 from ..physics.fluid import (Fluid, primitive2state, speed_of_sound,
                              state2primitive_guarded)
 from ..topology.blocks import BlockTables
-from ..utils.monitor import device_span
+from ..utils.monitor import count, device_span
 from . import rhs_cs, scheme
 from .operators import abs_select
 
@@ -235,9 +235,12 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     `rhs_cs.euler_rhs_grid_pallas` at nd = 3 and `rhs_cs.euler_rhs_grid_2d`
     at nd = 2 (on the CPU the kernels' plain versions run); False forces
     the torch-op body, which also serves the ineligible calls
-    (``frozen``, ``fix3``, a sparse leftover). ``fold`` reaches the 3D
-    route's plain-RHS call (the 2D route always folds its 2:1
-    corrections into the kernels).
+    (``frozen``, ``fix3``, a sparse leftover the 2D route's partial rows
+    do not carry). ``fold`` reaches the 3D route's plain-RHS call (the 2D
+    route always folds its 2:1 corrections into the kernels). While
+    `monitor.tracing()` is on, each call counts its route:
+    ``rhs.route.kernels_2d``, ``rhs.route.kernels_3d`` or
+    ``rhs.route.ops``.
 
     ``viscous=True`` subtracts Newtonian viscous + heat-conduction face
     fluxes (reference ``src/cfd.jl:664-736``) using the pass-A cell
@@ -257,6 +260,7 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
     if kernels and rhs_cs.pallas_eligible(bt, viscous=viscous,
                                           frozen=frozen, fix3=fix3,
                                           mu_t3=mu_t3, cut3=cut3):
+        count(f"rhs.route.kernels_{bt.nd}d")
         if bt.nd == 2:
             return rhs_cs.euler_rhs_grid_2d(bt, fluid, P3,
                                             high_order=high_order,
@@ -265,6 +269,7 @@ def euler_rhs_grid(bt: BlockTables, fluid: Fluid, P3, *,
                                             high_order=high_order,
                                             with_dt=with_dt, cfl=cfl,
                                             fold=fold)
+    count("rhs.route.ops")
     with device_span("march.rhs", P3.device):
         return _euler_rhs_ops(bt, fluid, P3, high_order, with_dt, cfl,
                               frozen, fix3, viscous, mu_t3, cut3)

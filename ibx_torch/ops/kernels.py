@@ -718,7 +718,10 @@ def _ifc_lanes(ifc, bs: int):
     lane i along its edge, the flat id of its own edge cell [V, bs] and of
     the cell each sub-face q = 0, 1 faces (two [V, bs]; the fine side's one
     face is its q = 0, and its q = 1 repeats it), with the row's d, s and
-    kind as [V, 1] columns."""
+    kind as [V, 1] columns, and [V, bs] True on the lanes of a partial
+    coarse row that face its absent (-1) fine neighbor (they face the own
+    block's opposite edge line instead, valid ids: their rows are
+    zero)."""
     own, d, s, kind, n0, n1 = (c[:, None] for c in ifc.long().unbind(1))
     i = torch.arange(bs, device=ifc.device)
 
@@ -727,13 +730,15 @@ def _ifc_lanes(ifc, bs: int):
         return (b * bs + torch.where(d == 0, j, e)) * bs \
             + torch.where(d == 0, e, j)
 
+    nb = torch.where(2 * i < bs, n0, n1)
+    absent = (kind == 1) & (nb < 0)
     fine = edge(n0, 1 - s, n1 * (bs // 2) + i // 2)
     theirs = []
     for q in (0, 1):
         m = 2 * i + q
-        coarse = edge(torch.where(m < bs, n0, n1), 1 - s, m % bs)
+        coarse = edge(torch.where(absent, own, nb), 1 - s, m % bs)
         theirs.append(torch.where(kind == 0, fine, coarse))
-    return edge(own, s, i), theirs, d, s, kind
+    return edge(own, s, i), theirs, d, s, kind, absent
 
 
 def _ifc_rows_ref(h, ifc, bs: int, operands, face, n_signed: int):
@@ -742,8 +747,9 @@ def _ifc_rows_ref(h, ifc, bs: int, operands, face, n_signed: int):
     channel parts at flat cell ids, ``face(Wo, Wn, ho, hn, d)`` the face
     values with the owner on the minus side; the first ``n_signed``
     channels flip on s = 0. A fine-side row is (v sgn)/h, a coarse-side row
-    ((v_0 + v_1)(sgn/2))/h, with the facing cells' spacing 2h and h/2."""
-    mine, theirs, d, s, kind = _ifc_lanes(ifc, bs)
+    ((v_0 + v_1)(sgn/2))/h, with the facing cells' spacing 2h and h/2; a
+    lane that faces a partial row's absent neighbor is zero."""
+    mine, theirs, d, s, kind, absent = _ifc_lanes(ifc, bs)
     h_own = h[ifc[:, 0].long(), ifc[:, 1].long()][:, None, None]
     coarse = (kind == 1)[..., None]
     up = (s == 1)[..., None]
@@ -759,8 +765,9 @@ def _ifc_rows_ref(h, ifc, bs: int, operands, face, n_signed: int):
                       ho, hn, d))
     ch = torch.arange(F[0].shape[-1], device=ifc.device)
     sgn = torch.where(~up & (ch < n_signed), -1.0, 1.0)
-    return torch.where(coarse, (F[0] + F[1]) * (sgn * 0.5) / h_own,
+    rows = torch.where(coarse, (F[0] + F[1]) * (sgn * 0.5) / h_own,
                        F[0] * sgn / h_own)
+    return torch.where(absent[..., None], 0.0, rows)
 
 
 def interface_a_2d_ref(fluid: Fluid, P3, h, ifc, *, with_dt: bool):

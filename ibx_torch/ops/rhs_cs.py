@@ -159,10 +159,13 @@ def pallas_eligible(bt: BlockTables, *, viscous: bool = False, fix3=None,
     threads per mesh block, so they also take 4 (16 threads, the parity
     fixture's size) but not 2 (4 threads) or 32 (1024 threads and four
     times the shared-memory tile). A mesh with generic sparse leftover
-    faces stays on the torch-op body, which accumulates them."""
+    faces stays on the torch-op body, which accumulates them, unless it is
+    2D and its partial 2:1 rows carry every one (``bt.n_partial_rows``: a
+    sharded rank's local grid, `topology.blocks._partial_rows`)."""
     return (bt.nd in (2, 3) and bt.block_size in STENCIL_BLOCK_SIZES
             and not viscous and fix3 is None and cut3 is None
-            and frozen is None and mu_t3 is None and bt.n_sparse == 0)
+            and frozen is None and mu_t3 is None
+            and (bt.n_sparse == 0 or bt.n_partial_rows > 0))
 
 
 def gradients_cs(bt: BlockTables, fluid: Fluid, Pc, *, with_dt: bool,
@@ -348,8 +351,10 @@ def euler_rhs_grid_2d(bt: BlockTables, fluid: Fluid, P3, *,
     its sums before it forms the sensor and dt; then
     `kernels.interface_b_2d` the corrections of pass B from the edge cells
     of P, du_d and nu, which pass B (`kernels.euler_pass_b_2d`) adds to
-    each dim's divergence before it sums the dims. On the CPU the plain
-    versions give the torch-op body's values bit for bit. A state
+    each dim's divergence before it sums the dims. A table's generic
+    leftover faces, where its partial coarse-side rows carry them
+    (``bt.n_partial_rows``), come in by the same rows. On the CPU the
+    plain versions give the torch-op body's values bit for bit. A state
     with other strides (a column-major restart file) is copied once: the
     kernels read one float4 a cell."""
     dev, P3 = P3.device, P3.contiguous()

@@ -12,8 +12,12 @@ inter-block faces are dense shifts; outer-boundary one-sided faces are
 self-neighbor sides; 2:1 refinement interfaces are structured
 block-column corrections; anything else is a generic sparse leftover
 (`sp_owner` / `sp_neighbor` / `sp_wr` / `sp_wl`), which
-`block_ops.face_accumulate` gathers and scatter-adds and the CUDA kernel
-route leaves to it (`rhs_cs.pallas_eligible`).
+`block_ops.face_accumulate` gathers and scatter-adds. At nd = 2 the
+leftovers a sharded rank's local grid has at its halo blocks (the coarse
+side of a 2:1 interface whose other fine neighbor lies beyond the halo)
+become partial coarse-side rows of the 2D kernels' row table
+(`_partial_rows`); any other leftover keeps the table off the kernel
+routes (`rhs_cs.pallas_eligible`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import monitor
 
 
 @dataclasses.dataclass
@@ -55,7 +61,12 @@ class BlockTables:
       fine side (n0 the coarse neighbor, n1 fs_off) and 1 on the coarse
       side (n0, n1 the fine neighbors of cs_fine, low then high), the row
       table of the 2D interface kernels (`kernels.interface_a_2d` /
-      `interface_b_2d`).
+      `interface_b_2d`); after those rows, the partial coarse-side rows
+      that carry the leftover faces (`_partial_rows`: an absent fine
+      neighbor is -1), which `fold_rows` numbers too.
+    n_partial_rows: the number of those partial rows: more than 0 only
+      where they carry every leftover face, so that the 2D kernel route
+      may take the table (the sp_* tables stay for the torch-op body).
     """
 
     nbr: Tuple
@@ -81,6 +92,7 @@ class BlockTables:
     nd: int
     n_cells: int
     n_sparse: int
+    n_partial_rows: int = 0
     # sign vectors of the accumulations, one per mask (`signs`)
     _signs: Dict[Tuple[float, ...], torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
@@ -148,6 +160,13 @@ class BlockTables:
                     ifc_rows.append(np.column_stack([
                         ifc, np.full(ifc.shape[0], d), np.full(
                             ifc.shape[0], s), kind, nbrs]).astype(np.int32))
+        part = _partial_rows(f, fold_rows) if nd == 2 and n_sparse \
+            else None
+        if part is not None:
+            fold_rows[part[:, 0], 2 * part[:, 1] + part[:, 2]] = \
+                n_rows + np.arange(part.shape[0], dtype=np.int32)
+            ifc_rows.append(part)
+            monitor.count("blocks.partial_rows", part.shape[0])
         ifc_rows = np.concatenate(ifc_rows) if ifc_rows \
             else np.zeros((0, 6), np.int32)
         return cls(
@@ -171,7 +190,71 @@ class BlockTables:
             ifc_rows=torch.as_tensor(ifc_rows, device=device),
             n_blocks=B, block_size=bs, nd=nd, n_cells=int(f["n_cells"]),
             n_sparse=n_sparse,
+            n_partial_rows=0 if part is None else part.shape[0],
         )
+
+
+def _partial_rows(f: Dict[str, object], fold_rows: np.ndarray):
+    """Partial coarse-side 2:1 rows that carry every generic leftover face
+    of the nd = 2 tables ``f``, or None when one does not fit.
+
+    A face fits where each cell it has a weight on (sp_wr on the owner,
+    the minus-side cell, whose side along d is then s = 1; sp_wl on the
+    neighbor, s = 0) is the edge cell of a block side (b, d, s) with
+    edge_valid 0 and no row in ``fold_rows``, the weight is 1/2, and the
+    other cell lies on the facing edge line of a block whose cells are
+    half the size (spacing_flat h/2 against the own cell's h, h the
+    block's spacing along d, to the bit: the row's faces take these
+    spacings), at the lane `kernels._ifc_lanes` gives a coarse row: lane
+    i faces lanes 2i and 2i + 1 of the low fine neighbor for i < bs/2, of
+    the high one (less bs) above. Each half of the side has all of its
+    bs faces against one block, or none, whose neighbor is then -1.
+    Returns int32 [K, 6] rows (b, d, s, 1, n0, n1), one per such side.
+    The face values the kernels give these rows, ((v_0 + v_1)(sgn/2))/h,
+    are the torch-op body's (0.5 v_0 + 0.5 v_1)/h to the bit."""
+    bs = int(f["block_size"])
+    npb, half = bs * bs, bs // 2
+    h = np.asarray(f["h"], np.float32)
+    sp = np.asarray(f["spacing_flat"], np.float32)
+    rows = {}
+    for d in range(2):
+        o = np.asarray(f["sp_owner"][d], np.int64)
+        n = np.asarray(f["sp_neighbor"][d], np.int64)
+        wr = np.asarray(f["sp_wr"][d], np.float32)
+        wl = np.asarray(f["sp_wl"][d], np.float32)
+        cell = np.concatenate([o[wr != 0], n[wl != 0]])
+        other = np.concatenate([n[wr != 0], o[wl != 0]])
+        w = np.concatenate([wr[wr != 0], wl[wl != 0]])
+        s = np.concatenate([np.ones(int((wr != 0).sum()), np.int64),
+                            np.zeros(int((wl != 0).sum()), np.int64)])
+        b, fb = cell // npb, other // npb
+        # a cell's flat id within its block is x + bs y; dim 0 is x
+        along = [(c % npb) % bs if d == 0 else (c % npb) // bs
+                 for c in (cell, other)]
+        lane = [(c % npb) // bs if d == 0 else (c % npb) % bs
+                for c in (cell, other)]
+        i, j = lane
+        ev = np.stack([np.asarray(f["edge_valid"][d][q]) for q in (0, 1)])
+        ok = ((w == 0.5) & (along[0] == s * (bs - 1))
+              & (along[1] == (1 - s) * (bs - 1)) & (fb != b)
+              & (j // 2 == i % half) & (ev[s, b] == 0)
+              & (fold_rows[b, 2 * d + s] < 0)
+              & (sp[cell, d] == h[b, d]) & (sp[other, d] == h[b, d] * 0.5))
+        if not ok.all():
+            return None
+        upper = (i >= half).astype(np.int64)
+        key = (b * 2 + s) * 2 + upper
+        for k in np.unique(key):
+            at = key == k
+            if at.sum() != bs or np.unique(fb[at]).size != 1 \
+                    or np.unique(i[at] * bs + j[at]).size != bs:
+                return None
+            side = (int(b[at][0]), d, int(s[at][0]))
+            rows.setdefault(side, [-1, -1])[int(upper[at][0])] = \
+                int(fb[at][0])
+    return np.asarray([[b, d, s, 1, n0, n1]
+                       for (b, d, s), (n0, n1) in sorted(rows.items())],
+                      np.int32).reshape(-1, 6)
 
 
 def build_block_tables(dom) -> Dict[str, object]:
